@@ -1,15 +1,17 @@
 """cmix_tpu_torch: the PyTorch/CUDA port of tpu-cmix.
 
 Same byte-tree context-mixing transcoder and TCMX v19 archive container as
-``cmix_tpu``, written as plain PyTorch tensor code with the one TPU kernel
-of the main path (the DMC apply+walk) hand-written in CUDA C++ for Hopper
-(``csrc/dmc_fused.cu``).  The package never imports JAX or ``cmix_tpu``:
+``cmix_tpu``, written as plain PyTorch tensor code with the JAX package's
+two TPU kernels hand-written in CUDA C++ for Hopper (``csrc/dmc_fused.cu``,
+the DMC apply+walk of the main path, and ``csrc/dmc_counts.cu``, the
+prediction-only walk).  The package never imports JAX or ``cmix_tpu``:
 host modules it needs are kept as its own copies.
 
 Entry points run on the GPU (``device="cuda"``) unless the caller asks for
-the CPU; there is no silent fallback.  This slice supports the fast
-profile with the default gates and the bench speed profile, on inputs whose
-content detection finds only text/raw segments (see ``runner``).
+the CPU; there is no silent fallback.  The port supports the fast profile
+with the default gates and the bench speed profile, and the portable
+integer profile (PORT=1), on inputs whose content detection finds only
+text/raw segments (see ``runner``).
 """
 
 from cmix_tpu_torch.version import FORMAT_VERSION  # noqa: F401

@@ -5,8 +5,10 @@ numpy arrays (the caller runs ``jax.device_get``) and returns the port's
 tensors: uint32 tables become int32 tensors holding the same bits, small
 u32 leaves become int64 values, the bank chunks ``bank``/``bank2``/... are
 joined into one table, the DMC tables' TPU tile layout (B, N/1024, 8, 128)
-becomes flat (B, N).  ``to_numpy`` is the inverse, so tests can compare
-the two packages leaf by leaf.
+becomes flat (B, N).  The portable profile's integer tables and the
+integer LSTM's leaves stay int32, as the port computes them.
+``to_numpy`` is the inverse, so tests can compare the two packages leaf
+by leaf.
 """
 
 import numpy as np
@@ -15,15 +17,19 @@ import torch
 # uint32 leaves kept at rest as int32 bits in the port
 _BITS32 = {"d12", "aux_tbl", "ppm", "sbank", "bank", "dmc_nxt", "dmc_cnt",
            "dmc_uXC", "dmc_uSW", "dmc_uUW"}
-# int32 leaves the port keeps as int32 (kernel operands, small tables)
-_INT32 = {"ppm_ck", "dmc_cur", "dmc_top", "dmc_uX", "dmc_uS", "dmc_uU"}
+# int32 leaves the port keeps as int32: kernel operands, small tables, and
+# the portable profile's integer domains of the fast profile's f32 tables
+_INT32 = {"ppm_ck", "dmc_cur", "dmc_top", "dmc_uX", "dmc_uS", "dmc_uU",
+          "d0_p", "d0_c", "match_conf", "match2_conf", "runx_conf",
+          "ppm_see", "sbank_p", "w1", "bias1", "w2", "w2b", "w2c", "w2x",
+          "bias2", "w3", "bias3", "apm", "w_apm"}
 # uint32 leaves held as int64 u32 values
 _U32_SMALL = {"ind_val", "h32", "h48", "x1", "x2", "xc"}
 _U32_TREES = {"ctx", "x86"}
 _SEP = 64                          # the JAX package's BANK_SPLIT
 
 
-def _leaf_to_torch(key, a, device):
+def _leaf_to_torch(key, a, device, keep32=False):
     a = np.asarray(a)
     if key in ("dmc_nxt", "dmc_cnt") and a.ndim == 4:
         a = a.reshape(a.shape[0], -1)
@@ -31,20 +37,27 @@ def _leaf_to_torch(key, a, device):
         if key in _BITS32:
             return torch.as_tensor(a.view(np.int32).copy(), device=device)
         return torch.as_tensor(a.astype(np.int64), device=device)
-    if a.dtype == np.int32 and key not in _INT32:
+    if a.dtype == np.int32 and not (keep32 or key in _INT32):
         return torch.as_tensor(a.astype(np.int64), device=device)
     return torch.as_tensor(a.copy(), device=device)
 
 
-def _tree_to_torch(tree, device):
+def _all_int32(tree):
+    """An integer LSTM's state (the PORT profile): every leaf int32."""
+    return all(_all_int32(v) if isinstance(v, dict)
+               else np.asarray(v).dtype == np.int32 for v in tree.values())
+
+
+def _tree_to_torch(tree, device, keep32=False):
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            out[k] = _tree_to_torch(v, device)
+            out[k] = _tree_to_torch(v, device,
+                                    keep32 or (k == "lstm" and _all_int32(v)))
         elif k == "step":
             out[k] = int(np.asarray(v))
         else:
-            out[k] = _leaf_to_torch(k, v, device)
+            out[k] = _leaf_to_torch(k, v, device, keep32)
     return out
 
 

@@ -1,4 +1,4 @@
-"""The batched byte-tree transcoder engine (fast profile), in PyTorch.
+"""The batched byte-tree transcoder engine, in PyTorch.
 
 Port of cmix_tpu/engine.py.  Same ensemble, same update rules, same archive
 semantics; plain tensor code batched over the B blocks of a coding group,
@@ -7,10 +7,21 @@ with the DMC apply+walk as the one hand-written CUDA kernel
 value passed to the engine; its names, defaults and ``blob`` bytes are the
 JAX package's ``_GATE_SPEC``/``gates_blob``.
 
-This slice runs two gate sets: the defaults, and the bench speed profile
-(DMC_LEVELS=7 PPM_CK=0 PPM_DEEP=0 BANK_CH=1 CTX4=0).  Every other gate is
-fixed at its default here, and any other value raises NotImplementedError
-naming the ROADMAP.md item that will port it.
+Two profiles, as in the JAX package (README "Determinism contract"):
+
+* the fast profile (PORT=0) mixes in float32 and runs two gate sets: the
+  defaults and the bench speed profile (DMC_LEVELS=7 PPM_CK=0 PPM_DEEP=0
+  BANK_CH=1 CTX4=0);
+* the portable profile (PORT=1 on top of the default gates, any
+  ILSTM_LRX/ILSTM_ADAM) computes everything that feeds the coder in
+  int32: ``utils/intmath.py`` for stretch/squash and for every integer
+  contraction, integer twins of the slot, PPM, mixer and APM updates
+  (the ``*_int`` functions below) and the integer LSTM
+  (``mixer/ilstm.py``).  Its archives are byte-identical to the JAX
+  package's on any device.
+
+Every other gate value raises NotImplementedError naming the ROADMAP.md
+item that will port it.
 
 Determinism on the card (encode and decode must compute the same bits):
 
@@ -21,6 +32,7 @@ Determinism on the card (encode and decode must compute the same bits):
 * float scatter-adds use ``index_add_``, which runs a sorted segment sum
   on CUDA once ``torch.use_deterministic_algorithms(True)`` is set (done by
   ``resolve_device`` for every CUDA run, with CUBLAS_WORKSPACE_CONFIG);
+  integer scatter-adds are exact in any order;
 * float cumulative sums are float32 adds in a fixed order (``utils/ops.py``);
 * deterministic mode's fill of every new allocation is switched off: each
   operator of the step writes its whole output.
@@ -37,6 +49,9 @@ from cmix_tpu_torch.contexts.hashes import (
     init_ctx_state, update_ctx_state_batched, bracket_ctx, line_expected)
 from cmix_tpu_torch.contexts.x86 import (
     init_x86_state, x86_update, x86_ctx_vals)
+from cmix_tpu_torch.mixer.ilstm import (
+    ILstmConfig, init_ilstm_shared, init_ilstm_perblock,
+    ilstm_shared_byte_update)
 from cmix_tpu_torch.mixer.lstm import (
     LstmConfig, init_lstm_shared, init_lstm_perblock,
     lstm_shared_byte_update)
@@ -44,6 +59,8 @@ from cmix_tpu_torch.models import dmc
 from cmix_tpu_torch.states.tables import (
     NS_NEXT, NS_INIT_P12, RUN_NEXT, RUN_INIT_P12)
 from cmix_tpu_torch.u32 import M32, PRIME2, mix32, mul, to_bits
+from cmix_tpu_torch.utils.intmath import (
+    ieinsum, squash12_lut, squash16_lut, stretch13_lut)
 from cmix_tpu_torch.utils.ops import cumprod_last, cumsum0_last
 
 MODE_ENCODE = 0
@@ -115,10 +132,12 @@ _LATER = {
     "GRID2": "item 11 (content-routed gates: media/GRID2/LMS)",
     "LMS": "item 11 (content-routed gates: media/GRID2/LMS)",
     "WRTW": "item 12 (WRT and dictionary pretraining)",
-    "PORT": "item 14 (portable profile PORT=1)",
-    "ILSTM_LRX": "item 14 (portable profile PORT=1)",
-    "ILSTM_ADAM": "item 14 (portable profile PORT=1)",
 }
+# the portable profile's gates: PORT on top of the defaults, and the
+# integer LSTM's learning-rate scale and optimizer at any value
+_PORT_GATES = ("PORT", "ILSTM_LRX", "ILSTM_ADAM")
+# float-internal paths the portable profile excludes (JAX engine _derive)
+_NOT_WITH_PORT = ("VMATCH", "LMS", "MIX_TAU", "MIX_BOOST")
 _OFF_BY_DEFAULT = "item 15 (remaining off-by-default gates)"
 
 
@@ -153,7 +172,19 @@ class Gates:
     def _i(self, name):
         return int(self[name])
 
-    # ---- the five gates this slice lets vary
+    # ---- the gates this port lets vary
+    @cached_property
+    def port(self):
+        return self._i("PORT") != 0
+
+    @cached_property
+    def ilstm_lrx(self):
+        return self._i("ILSTM_LRX")
+
+    @cached_property
+    def ilstm_adam(self):
+        return self._i("ILSTM_ADAM") != 0
+
     @cached_property
     def dmc_levels(self):
         return min(self._i("DMC_LEVELS"), 8)
@@ -284,23 +315,30 @@ APM_ROWS = 576 + 512       # + 512 * APM2X
 def make_gates(env=None) -> Gates:
     """Validate a gate mapping (name -> raw value; missing = default).
 
-    Raises NotImplementedError for a gate set this slice does not port."""
+    Raises FormatError where the JAX package does (an unknown gate, PORT
+    with a float-internal path) and NotImplementedError for a gate set
+    this port does not run yet."""
     env = dict(env or {})
     known = {n for n, _, _ in _GATE_SPEC}
     for name in env:
         if name not in known:
             raise FormatError(f"unknown model gate {name!r}")
     vals = {n: _norm_gate(n, t, env.get(n, d)) for n, t, d in _GATE_SPEC}
-    if vals != _DEFAULTS and vals != _BENCH:
-        for n, _, _ in _GATE_SPEC:
-            if vals[n] != _DEFAULTS[n]:
-                where = _LATER.get(n, _OFF_BY_DEFAULT)
-                if n in BENCH_GATES:
-                    where = ("the bench profile's gates only as the whole "
-                             f"set {BENCH_GATES}; other mixes: " + where)
-                raise NotImplementedError(
-                    f"gate {n}={vals[n]} is not ported to cmix_tpu_torch "
-                    f"yet (ROADMAP.md queue 1, {where})")
+    if vals["PORT"] != "0" and any(vals[n] != _DEFAULTS[n]
+                                   for n in _NOT_WITH_PORT):
+        raise FormatError("PORT=1 requires VMATCH=0, LMS=0, MIX_TAU=0 "
+                          "and MIX_BOOST=0 (float-internal paths)")
+    off = [n for n, _, _ in _GATE_SPEC
+           if vals[n] != _DEFAULTS[n] and n not in _PORT_GATES]
+    if off and vals != _BENCH:
+        n = off[0]
+        where = _LATER.get(n, _OFF_BY_DEFAULT)
+        if n in BENCH_GATES:
+            where = ("the bench profile's gates only as the whole set "
+                     f"{BENCH_GATES}, without PORT; other mixes: " + where)
+        raise NotImplementedError(
+            f"gate {n}={vals[n]} is not ported to cmix_tpu_torch yet "
+            f"(ROADMAP.md queue 1, {where})")
     return Gates(tuple((n, vals[n]) for n, _, _ in _GATE_SPEC))
 
 
@@ -427,7 +465,17 @@ def resolve_device(device="cuda"):
     return dev
 
 
-def _lstm_cfg(cfg: EngineConfig):
+def _lstm_cfg(cfg: EngineConfig, g: Gates):
+    """The LSTM of the profile: the integer re-spec under PORT (one layer;
+    ILSTM_LRX scales its rates by x/4), else the float LSTM."""
+    if g.port:
+        x = g.ilstm_lrx
+        return ILstmConfig(hidden=cfg.lstm_hidden, horizon=cfg.lstm_horizon,
+                           lr_wx=192 * x // 4, lr_wh=96 * x // 4,
+                           lr_wo=96 * x // 4, lr_b=48 * x // 4,
+                           adam=g.ilstm_adam,
+                           alr_wx=40 * x // 4, alr_wh=20 * x // 4,
+                           alr_wo=20 * x // 4, alr_b=10 * x // 4)
     return LstmConfig(hidden=cfg.lstm_hidden, layers=cfg.lstm_layers,
                       horizon=cfg.lstm_horizon)
 
@@ -504,9 +552,55 @@ def init_shared(cfg: EngineConfig, g: Gates, device):
     }
     if g.ppm_ck:
         sh["ppm_ck"] = torch.full((g.n_ppm, cfg.prows), 256, **i32)
+    if g.port:
+        sh.update(_port_tables(g, device))
+        del sh["vmatch_conf"], sh["lms_conf"], sh["w1_cnt"]
     if cfg.lstm_hidden:
-        sh["lstm"] = init_lstm_shared(_lstm_cfg(cfg), device)
+        lcfg = _lstm_cfg(cfg, g)
+        sh["lstm"] = (init_ilstm_shared(lcfg, device) if g.port else
+                      init_lstm_shared(lcfg, device))
     return sh
+
+
+def _port_tables(g: Gates, device):
+    """The portable profile's integer domains for the float-valued tables
+    (same keys): probabilities as p12, mixer weights at a 16-bit fraction,
+    biases in st256 at a 16-bit fraction (JAX engine init_shared)."""
+    def q(a, scale, lo=None, hi=None):
+        v = np.round(a * np.float32(scale))
+        return (v if lo is None else np.clip(v, lo, hi)).astype(np.int32)
+
+    n_pri = g.n_primary
+    w1 = q(np.concatenate([np.full(n_pri, 1.0 / n_pri, np.float32),
+                           np.zeros(g.n_inputs - n_pri, np.float32)]),
+           65536)
+    w2 = q(np.full(g.n_mix1, 1.0 / g.n_mix1, np.float32), 65536)
+    tile = lambda row, n: torch.as_tensor(                       # noqa
+        np.ascontiguousarray(np.tile(row[None], (n, 1))), device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return {
+        "d0_p": torch.full((256,), 2048, **i32),
+        "d0_c": torch.zeros(256, **i32),
+        "match_conf": torch.full((g.n_match, 32), 2253, **i32),
+        "match2_conf": torch.full((g.n_match, 32), 2253, **i32),
+        "runx_conf": torch.full((g.runx_n, 32), 2253, **i32),
+        "ppm_see": torch.as_tensor(q(_see_init(g), 4096, 4, 3891),
+                                   device=device),
+        "sbank_p": torch.as_tensor(q(g.sbank_p0, 4096, 1, 4095),
+                                   device=device),
+        "w1": tile(w1, g.mix1_total),
+        "bias1": torch.zeros((g.n_mix1, 256), **i32),
+        "w2": tile(w2, 8),
+        "w2b": tile(w2, 256),
+        "w2c": tile(w2, 64),
+        "w2x": tile(w2, g.mix2_total),
+        "bias2": torch.zeros((g.n_l2, 256), **i32),
+        "w3": torch.full((8, g.n_l2), 65536 // g.n_l2, **i32),
+        "bias3": torch.zeros(256, **i32),
+        "apm": tile(q(_apm_row(), 4096, 1, 4095), APM_ROWS),
+        "w_apm": tile(np.array([26214] + [(65536 * 6 // 10) // N_APM] * N_APM,
+                               np.int32), 64),
+    }
 
 
 def init_perblock(cfg: EngineConfig, g: Gates, B, device):
@@ -541,7 +635,8 @@ def init_perblock(cfg: EngineConfig, g: Gates, B, device):
         pb["h32"] = torch.zeros(B, **i64)
         pb["h48"] = torch.zeros(B, **i64)
     if cfg.lstm_hidden:
-        pb["lstm"] = init_lstm_perblock(_lstm_cfg(cfg), B, device)
+        pb["lstm"] = (init_ilstm_perblock if g.port else init_lstm_perblock)(
+            _lstm_cfg(cfg, g), B, device)
     if cfg.dmc_nodes:
         pb.update(dmc.init_dmc_perblock(cfg.dmc_nodes, B, device))
     return pb
@@ -566,6 +661,7 @@ class _Consts:
         self.level = t(_LEVEL)
         self.lo, self.mid, self.hi = t(_LO), t(_MID), t(_HI)
         self.lvl_onehot = t(_LVL_ONEHOT, torch.float32)
+        self.lvl_i = t(_LVL_ONEHOT, torch.int32)
         self.is_vowel = t(_IS_VOWEL)
         self.mix1_off = t(g.mix1_off[2:])
         self.mix2_off = t(g.mix2_off)
@@ -590,9 +686,36 @@ def _stretch_f(p):
     return torch.clamp(torch.log(p / (1.0 - p)), -ST_CLAMP, ST_CLAMP)
 
 
+def _st256(p12):
+    """Integer stretch in st256 units (st13 - 4096) of p12 values."""
+    return stretch13_lut(p12) - 4096
+
+
+def _packed_st256(words, shift):
+    """The stretch field (st13, from bit ``shift`` up) of packed u32 slot
+    words held as int32 bits, logical shift, in st256 units."""
+    return ((words >> shift) & ((1 << (32 - shift)) - 1)) - 4096
+
+
+def _vote(alive, bit, st):
+    """A predicted byte's vote on its tree path: +-st (per model) at the
+    nodes it is alive on, 0 elsewhere (f32 or st256 int32)."""
+    sign = torch.where(bit == 1, 1, -1).to(st.dtype)
+    return torch.where(alive, sign * st[:, :, None], torch.zeros_like(
+        st[:, :, None]))
+
+
 def _take_cols(tbl, col):
     """``tbl[m, col[:, m]]`` for a (M, C) table and (B, M) columns."""
     return tbl[torch.arange(tbl.shape[0], device=tbl.device)[None, :], col]
+
+
+def _idot(eq, w, x):
+    """Integer mixer dot in st256 units: (sum w*x) >> 16 for 16-bit-
+    fraction weights, split hi/lo as the JAX package's _idot does."""
+    w_hi = w >> 8
+    w_lo = w - (w_hi << 8)
+    return (ieinsum(eq, w_hi, x) >> 8) + (ieinsum(eq, w_lo, x) >> 16)
 
 
 def _floor_log2_i(x):
@@ -887,6 +1010,45 @@ def _ppm_blend_f32(sh, ppm_rows, C, p_idx):
             see_p)
 
 
+def _ppm_blend_int(sh, ppm_rows, C, p_idx):
+    """Integer twin of _ppm_blend_f32 (portable profile): the distribution
+    in 16-bit fixed point, escapes in p12, node probabilities by exact
+    integer division, st256 through intmath.  All int32."""
+    i32 = torch.int32
+    B, n_ppm = ppm_rows.shape[:2]
+    rev = torch.flip(ppm_rows, [1])                          # high order 1st
+    seen = torch.cumsum((rev > 0).to(i32), dim=1).to(i32)
+    seen_above = torch.cat([torch.zeros_like(seen[:, :1]), seen[:, :-1]],
+                           dim=1)
+    pcnt = torch.flip(torch.where(seen_above > 0, 0, rev), [1])
+    unseen = (seen[:, -1, :] == 0).to(i32)                   # (B, 256)
+    n_uns = unseen.sum(dim=1, keepdim=True).to(i32)
+    fb16 = torch.where(n_uns > 0,
+                       unseen * (65536 // torch.clamp(n_uns, min=1)), 256)
+    ptot = pcnt.sum(dim=2).to(i32)                           # (B, NP)
+    pdst = (pcnt > 0).sum(dim=2).to(i32)
+    see_d = torch.clamp(pdst, max=SEE_DIST_B - 1).long()
+    see_t = torch.clamp(_floor_log2_i(ptot + 1), max=SEE_TOT_B - 1).long()
+    see_p = sh["ppm_see"][p_idx[None, :], see_d, see_t]      # (B, NP) p12
+    esc_rev = torch.flip(torch.where(ptot > 0, see_p, 4096), [1])
+    wcum = [torch.full((B,), 65536, dtype=i32, device=ppm_rows.device)]
+    for j in range(n_ppm - 1):
+        wcum.append((wcum[-1] * esc_rev[:, j]) >> 12)
+    wcum = torch.stack(wcum, dim=1)                          # (B, NP)
+    w_ord = torch.flip(((wcum >> 4) * ((4096 - esc_rev) >> 2)) >> 6, [1])
+    pnorm16 = (pcnt << 16) // torch.clamp(ptot, min=1)[:, :, None]
+    q16 = ((((w_ord[:, :, None] >> 4) * (pnorm16 >> 4)) >> 8)
+           .sum(dim=1).to(i32))                              # (B, 256)
+    w_fb = (wcum[:, -1] * esc_rev[:, -1]) >> 12
+    q16 = q16 + (((w_fb[:, None] >> 4) * (fb16 >> 4)) >> 8)
+    pqcum = torch.cat([torch.zeros_like(q16[:, :1]),
+                       torch.cumsum(q16, dim=1).to(i32)], dim=1)
+    q_lo, q_hi, q_mid = pqcum[:, C.lo], pqcum[:, C.hi], pqcum[:, C.mid]
+    p12 = torch.clamp(((q_hi - q_mid) << 12)
+                      // torch.clamp(q_hi - q_lo, min=1), 1, 4095)
+    return _st256(p12)[:, None, :], pcnt, ptot, pdst, see_d, see_t, see_p
+
+
 def _predict_tree_b(cfg, g, C, sh, pb, t):
     """Predictions for all 256 tree nodes of the current byte, batched.
     Returns (p_tree f32 (B, 256), aux dict threaded to _update_tree_b)."""
@@ -918,14 +1080,23 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
     rows = torch.where(pick_b[:, :, None], rows_b, rows_a)
     hdr = rows[:, :, 0].long()
     rows = torch.where((ok_a | ok_b)[:, :, None], rows, SLOT_INIT)
-    st_bank = ((rows >> 18).float() - 4096.0) * (1.0 / 256.0)
+    port = g.port
+    # the model inputs: f32 stretches, or st256 int32 under PORT
+    st_of = _st256 if port else _stretch_f
+    if port:
+        st_bank = _packed_st256(rows, 18)
+    else:
+        st_bank = ((rows >> 18).float() - 4096.0) * (1.0 / 256.0)
 
     b1 = cs["last4"] & 0xFF
-    st_d0 = _stretch_f(sh["d0_p"])[None].expand(B, 256)
+    st_d0 = st_of(sh["d0_p"])[None].expand(B, 256)
     b2 = cs["last4"] & 0xFFFF
     d12_idx = torch.stack([b1, 256 + b2, D12_BRK + brctx], dim=1)
     d12rows = sh["d12"][d12_idx]                             # (B, 3, 256)
-    st_d12 = ((d12rows >> 18).float() - 4096.0) * (1.0 / 256.0)
+    if port:
+        st_d12 = _packed_st256(d12rows, 18)
+    else:
+        st_d12 = ((d12rows >> 18).float() - 4096.0) * (1.0 / 256.0)
 
     # ---- match models (cursors may point into any block's history)
     hist = pb["hist"]
@@ -939,8 +1110,7 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
         exp_pref = (1 << lvl) + (exp_byte[:, :, None] >> (8 - lvl))
         alive = (node[None, None, :] == exp_pref) & (mlen > 0)[:, :, None]
         exp_bit = (exp_byte[:, :, None] >> (7 - lvl)) & 1
-        sign = torch.where(exp_bit == 1, 1.0, -1.0)
-        st = torch.where(alive, sign * _stretch_f(conf)[:, :, None], 0.0)
+        st = _vote(alive, exp_bit, st_of(conf))
         return exp_byte, lenb, conf, alive, exp_bit, st
 
     exp_byte, lenb, conf, alive, exp_bit, st_match = _match(
@@ -948,14 +1118,22 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
     _, lenb2, conf2, alive2, exp_bit2, st_match2 = _match(
         pb["mp2_blk"], pb["mp2_pos"], pb["match2_len"], sh["match2_conf"])
 
+    zero_ch = torch.zeros((B, 1, 256), device=dev,
+                          dtype=torch.int32 if port else torch.float32)
     if cfg.lstm_hidden:
         qcum = pb["lstm"]["qcum"]
         tot_lo, tot_hi, mid = qcum[:, C.lo], qcum[:, C.hi], qcum[:, C.mid]
-        denom = torch.clamp(tot_hi - tot_lo, min=1e-3)
-        p_lstm = torch.clamp((tot_hi - mid) / denom, 1e-5, 1 - 1e-5)
-        st_lstm = _stretch_f(p_lstm)[:, None, :]
+        if port:
+            p12l = torch.clamp(((tot_hi - mid) << 12)
+                               // torch.clamp(tot_hi - tot_lo, min=1),
+                               1, 4095)
+            st_lstm = _st256(p12l)[:, None, :]
+        else:
+            denom = torch.clamp(tot_hi - tot_lo, min=1e-3)
+            p_lstm = torch.clamp((tot_hi - mid) / denom, 1e-5, 1 - 1e-5)
+            st_lstm = _stretch_f(p_lstm)[:, None, :]
     else:
-        st_lstm = torch.zeros((B, 1, 256), device=dev)
+        st_lstm = zero_ch
 
     # ---- PPM: escape-blended multi-order byte distribution
     pcols = [cs["ohash"][:, o] if o <= 24 else pb["h32" if o == 32
@@ -973,24 +1151,32 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
         pck_ok = sh["ppm_ck"][p_ar[None, :], prowi] == pck_exp
         ppm_rows = torch.where(pck_ok[:, :, None], ppm_rows, 0)
     (st_ppm, pcnt, ptot, pdst, see_d, see_t,
-     see_p) = _ppm_blend_f32(sh, ppm_rows, C, p_ar)
+     see_p) = (_ppm_blend_int if port else _ppm_blend_f32)(
+        sh, ppm_rows, C, p_ar)
 
     # ---- state bank: packed (state | st13) slots, one row gather
     srowi = (mix32(bases[:, C.scols], C.ssalt[None, :]) >> 8) \
         & (cfg.rows - 1)
     s_ar = torch.arange(g.n_sbank, device=dev)
     srows = sh["sbank"][s_ar[None, :], srowi]                # (B, NS, 256)
-    st_sbank = ((srows >> 8).float() - 4096.0) * (1.0 / 256.0)
+    if port:
+        st_sbank = _packed_st256(srows, 8)
+    else:
+        st_sbank = ((srows >> 8).float() - 4096.0) * (1.0 / 256.0)
 
     # ---- DMC: apply the previous byte's pending updates, then walk
     if cfg.dmc_nodes:
         dmc_new, dmc_walk = dmc.predict_step(
             {k: pb[k] for k in dmc.DMC_STATE_KEYS}, g.dmc_levels)
         pb.update(dmc_new)
-        st_dmc = _stretch_f(dmc.probs_from_counts(dmc_walk["cw"]))[:, None]
+        if port:
+            st_dmc = _st256(dmc.p12_from_counts(dmc_walk["cw"]))[:, None]
+        else:
+            st_dmc = _stretch_f(dmc.probs_from_counts(dmc_walk["cw"])
+                                )[:, None]
     else:
         dmc_walk = None
-        st_dmc = torch.zeros((B, 1, 256), device=dev)
+        st_dmc = zero_ch
 
     # ---- run channels (RUNX) from the bank rows' header slot
     rx_rows = hdr[:, :g.runx_n] & 0xFFFF
@@ -1001,13 +1187,17 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
     rx_pref = (1 << lvl) + (rx_byte[:, :, None] >> (8 - lvl))
     rx_alive = (node[None, None, :] == rx_pref) & (rx_cnt > 0)[:, :, None]
     rx_bit = (rx_byte[:, :, None] >> (7 - lvl)) & 1
-    rx_sign = torch.where(rx_bit == 1, 1.0, -1.0)
-    st_runx = torch.where(rx_alive, rx_sign * _stretch_f(rx_conf)[:, :, None],
-                          0.0)
+    st_runx = _vote(rx_alive, rx_bit, st_of(rx_conf))
 
     parts = [st_bank, st_d0[:, None, :], st_d12, st_match, st_lstm, st_ppm,
              st_sbank, st_dmc, st_match2, st_runx]
-    if g.bank_ch > 1:
+    if g.bank_ch > 1 and port:
+        cnti = rows & 0x3F
+        conf12 = (cnti << 12) // (cnti + 2)                  # p12
+        parts.append((st_bank * conf12) >> 12)
+        if g.bank_ch > 2:
+            parts.append(conf12 - 2048)                      # +-2048 st256
+    elif g.bank_ch > 1:
         cntf = (rows & 0x3F).float()
         bconf = cntf / (cntf + 2.0)
         parts.append(st_bank * bconf)
@@ -1039,13 +1229,23 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
     w_dyn = w1[dyn_idx]                                      # (B, ND, NIN)
     w_const = w1[0]
     w_level = w1[1:9]
-    dot_const = torch.einsum("n,bnk->bk", w_const, x)
-    dot_dyn = torch.bmm(w_dyn, x)                            # (B, ND, 256)
-    dot_level = (w_level[level].t()[None] * x).sum(dim=1)
-    dots = torch.cat([dot_const[:, None], dot_level[:, None], dot_dyn],
-                     dim=1) + sh["bias1"][None]
-    p1 = torch.sigmoid(dots)
-    st1 = torch.clamp(dots, -ST_CLAMP, ST_CLAMP)             # (B, M1, 256)
+    if port:
+        # integer dots (hi/lo weight split, _idot): biases are kept at a
+        # 16-bit fraction, >> 8 brings them to the st256 dot domain
+        dots = torch.cat([_idot("n,bnk->bk", w_const, x)[:, None],
+                          _idot("kn,bnk->bk", w_level[level], x)[:, None],
+                          _idot("bin,bnk->bik", w_dyn, x)], dim=1)
+        dots = torch.clamp(dots + (sh["bias1"][None] >> 8), -3071, 3071)
+        p1 = squash12_lut(dots + 4096)                       # p12
+        st1 = dots                                           # st256
+    else:
+        dot_const = torch.einsum("n,bnk->bk", w_const, x)
+        dot_dyn = torch.bmm(w_dyn, x)                        # (B, ND, 256)
+        dot_level = (w_level[level].t()[None] * x).sum(dim=1)
+        dots = torch.cat([dot_const[:, None], dot_level[:, None], dot_dyn],
+                         dim=1) + sh["bias1"][None]
+        p1 = torch.sigmoid(dots)
+        st1 = torch.clamp(dots, -ST_CLAMP, ST_CLAMP)         # (B, M1, 256)
 
     clsg = cs["clsreg"] & 63
     dyn2_idx = torch.stack([
@@ -1057,16 +1257,28 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
     ], dim=1) + C.mix2_off[None, :]
     w2x_rows = sh["w2x"][dyn2_idx]                           # (B, 5, M2)
     w2n = sh["w2"][level]                                    # (256, M2)
-    dot2 = torch.cat([
-        (w2n.t()[None] * st1).sum(dim=1)[:, None],
-        torch.bmm(sh["w2b"][b1][:, None], st1),
-        torch.bmm(sh["w2c"][clsg][:, None], st1),
-        torch.bmm(w2x_rows, st1)], dim=1) + sh["bias2"][None]
-    p2 = torch.sigmoid(dot2)
-    st2 = torch.clamp(dot2, -ST_CLAMP, ST_CLAMP)             # (B, NL2, 256)
     w3n = sh["w3"][level]                                    # (256, NL2)
-    dot3 = (w3n.t()[None] * st2).sum(dim=1) + sh["bias3"][None]
-    p_mix = torch.sigmoid(dot3)
+    if port:
+        dot2 = torch.cat([
+            _idot("km,bmk->bk", w2n, st1)[:, None],
+            _idot("bm,bmk->bk", sh["w2b"][b1], st1)[:, None],
+            _idot("bm,bmk->bk", sh["w2c"][clsg], st1)[:, None],
+            _idot("bjm,bmk->bjk", w2x_rows, st1)], dim=1)
+        st2 = torch.clamp(dot2 + (sh["bias2"][None] >> 8), -3071, 3071)
+        p2 = squash12_lut(st2 + 4096)
+        st3 = torch.clamp(_idot("kj,bjk->bk", w3n, st2)
+                          + (sh["bias3"][None] >> 8), -3071, 3071)
+        p_mix = squash12_lut(st3 + 4096)                     # p12
+    else:
+        dot2 = torch.cat([
+            (w2n.t()[None] * st1).sum(dim=1)[:, None],
+            torch.bmm(sh["w2b"][b1][:, None], st1),
+            torch.bmm(sh["w2c"][clsg][:, None], st1),
+            torch.bmm(w2x_rows, st1)], dim=1) + sh["bias2"][None]
+        p2 = torch.sigmoid(dot2)
+        st2 = torch.clamp(dot2, -ST_CLAMP, ST_CLAMP)         # (B, NL2, 256)
+        dot3 = (w3n.t()[None] * st2).sum(dim=1) + sh["bias3"][None]
+        p_mix = torch.sigmoid(dot3)
 
     # ---- APM chain: interpolated SSE reads, then the learned final blend
     o2g = (cs["ohash"][:, 2] >> 17) & 0xFF
@@ -1075,22 +1287,38 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
         832 + torch.clamp(cs["linepos"], max=63) * 4 + (cs["cls2reg"] & 3),
     ], dim=1)                                                # (B, NA)
     apm_rows = sh["apm"][apm_idx]                            # (B, NA, 33)
-    st_mix = _stretch_f(p_mix)
-    tf = torch.clamp((st_mix + 8.0) * 2.0, 0.0, 31.999)
-    tl = tf.long()
-    frac = tf - tl.float()
-    pas, tls, frs = [], [], []
+    wa = sh["w_apm"][longest]                                # (B, 1+NA)
+    p_tree12 = None
+    if port:
+        # 7-bit interpolation weights over p12 rows; the final blend
+        # yields the coder's p16 directly
+        tq = torch.clamp(st3 + 2048, 0, 4095)
+        tl = torch.clamp(tq >> 7, max=31).long()
+        frac = tq - (tl.to(torch.int32) << 7)                # 0..127
+        st_mix = st3
+    else:
+        st_mix = _stretch_f(p_mix)
+        tf = torch.clamp((st_mix + 8.0) * 2.0, 0.0, 31.999)
+        tl = tf.long()
+        frac = tf - tl.float()
+    pas = []
     for j in range(N_APM):
         r = apm_rows[:, j]
-        pa = torch.gather(r, 1, tl) * (1 - frac) \
-            + torch.gather(r, 1, tl + 1) * frac
-        pas.append(pa)
-        tls.append(tl)
-        frs.append(frac)
-    st_in = torch.stack([st_mix] + [_stretch_f(p) for p in pas], dim=1)
-    wa = sh["w_apm"][longest]                                # (B, 1+NA)
-    st_fin = torch.bmm(wa[:, None], st_in)[:, 0]
-    p_tree = torch.sigmoid(st_fin)
+        if port:
+            pas.append(torch.clamp((torch.gather(r, 1, tl) * (128 - frac)
+                                    + torch.gather(r, 1, tl + 1) * frac)
+                                   >> 7, 1, 4095))
+        else:
+            pas.append(torch.gather(r, 1, tl) * (1 - frac)
+                       + torch.gather(r, 1, tl + 1) * frac)
+    st_in = torch.stack([st_mix] + [st_of(p) for p in pas], dim=1)
+    if port:
+        st_fin = torch.clamp(_idot("bj,bjk->bk", wa, st_in), -3071, 3071)
+        p_tree = squash16_lut(st_fin + 4096)                 # p16
+        p_tree12 = squash12_lut(st_fin + 4096)
+    else:
+        st_fin = torch.bmm(wa[:, None], st_in)[:, 0]
+        p_tree = torch.sigmoid(st_fin)
 
     aux = dict(rowi=rowi, rows=rows, ck_exp=ck_exp, hdr=hdr, b1=b1,
                d12_idx=d12_idx, prowi=prowi, ppm_rows=ppm_rows,
@@ -1101,8 +1329,9 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
                exp_bit2=exp_bit2, lenb2=lenb2, conf2=conf2, conf=conf, x=x,
                dyn_idx=dyn_idx, w_const=w_const, w_level=w_level, p1=p1,
                st1=st1, p_mix=p_mix, p2=p2, st2=st2, clsg=clsg,
-               dyn2_idx=dyn2_idx, longest=longest, tls=tls, frs=frs,
-               st_in=st_in, p_tree=p_tree, rx_b=rx_b, rx_conf=rx_conf,
+               dyn2_idx=dyn2_idx, longest=longest, apm_tl=tl, apm_frac=frac,
+               st_in=st_in, p_tree=p_tree, p_tree12=p_tree12, rx_b=rx_b,
+               rx_conf=rx_conf,
                rx_alive=rx_alive, rx_bit=rx_bit, dmc_walk=dmc_walk)
     return p_tree, aux
 
@@ -1123,27 +1352,45 @@ def _slot_update(slots, target):
                                   << 6) | newc.int())
 
 
+def _slot_update_int(slots, target_i):
+    """Integer twin of _slot_update (portable profile): rate
+    65536/(10*cnt+16) ~ 1/(cnt+1.6), st13 through intmath."""
+    cnt = slots & 0x3F
+    p12 = (slots >> 6) & 0xFFF
+    r16 = 655360 // (10 * cnt + 16)
+    newp = torch.clamp(p12 + (((target_i * 4096 - p12) * r16) >> 16),
+                       1, 4095)
+    newc = torch.clamp(cnt + 1, max=CNT_CAP)
+    return (stretch13_lut(newp) << 18) | (newp << 6) | newc
+
+
 def _update_tree_b(cfg, g, C, sh, pb, aux, byte):
-    """Adapt every model along each block's 8-node tree path (fast
-    profile: MIX_NORM, STAT_NORM, count-normalized final blend)."""
+    """Adapt every model along each block's 8-node tree path (MIX_NORM,
+    STAT_NORM, count-normalized final blend; integer twins under PORT)."""
     lr = MIX_LR
     level, node = C.level, C.node
     B = byte.shape[0]
     dev = byte.device
     B_f = 1.0 / B
+    port = g.port
+    i32 = torch.int32
     lvl = level[None, :]
     pref = (1 << lvl) + (byte[:, None] >> (8 - lvl))
     onp_b = (node[None, :] == pref)
     onp_b[:, 0] = False
     on_path = onp_b.float()                                  # (B, 256)
-    target = ((byte[:, None] >> (7 - lvl)) & 1).float()
+    onp_i = onp_b.to(i32)
+    target_i = ((byte[:, None] >> (7 - lvl)) & 1).to(i32)
+    target = target_i.float()
     n8 = (1 << C.k8)[None, :] + (byte[:, None] >> (8 - C.k8)[None, :])
-    t8 = ((byte[:, None] >> (7 - C.k8)[None, :]) & 1).float()
+    t8_i = ((byte[:, None] >> (7 - C.k8)[None, :]) & 1).to(i32)
+    t8 = t8_i.float()
 
     # ---- bank rows: masked in-row slot updates + the row header
-    newrows = torch.where(onp_b[:, None, :],
-                          _slot_update(aux["rows"], target[:, None, :]),
-                          aux["rows"])
+    newrows = torch.where(
+        onp_b[:, None, :],
+        _slot_update_int(aux["rows"], target_i[:, None, :]) if port else
+        _slot_update(aux["rows"], target[:, None, :]), aux["rows"])
     hdr_old = aux["hdr"]
     rx_old_cnt = hdr_old & 0xFF
     rx_old_byte = (hdr_old >> 8) & 0xFF
@@ -1155,18 +1402,31 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte):
 
     # ---- d0: aggregated dense update (STAT_NORM mean)
     c0 = sh["d0_c"]
-    r0 = 1.0 / (c0 + 1.6)
-    delta0 = ((target - sh["d0_p"][None]) * on_path).sum(dim=0)
-    hits0 = on_path.sum(dim=0)
-    delta0 = delta0 / torch.clamp(hits0, min=1.0)
-    hits0 = torch.clamp(hits0, max=1.0)
-    sh["d0_p"] = torch.clamp(sh["d0_p"] + r0 * delta0, 1e-4, 1 - 1e-4)
-    sh["d0_c"] = torch.clamp(c0 + hits0, max=float(CNT_CAP))
+    if port:
+        delta0 = torch.clamp(((target_i * 4096 - sh["d0_p"][None]) * onp_i
+                              ).sum(dim=0).to(i32), -(1 << 20), 1 << 20)
+        hits0 = onp_i.sum(dim=0).to(i32)
+        delta0 = delta0 // torch.clamp(hits0, min=1)
+        hits0 = torch.clamp(hits0, max=1)
+        r16_0 = 655360 // (10 * c0 + 16)
+        sh["d0_p"] = torch.clamp(
+            sh["d0_p"] + ((torch.clamp(delta0, -32768, 32767) * r16_0)
+                          >> 16), 1, 4095)
+        sh["d0_c"] = torch.clamp(c0 + hits0, max=CNT_CAP)
+    else:
+        r0 = 1.0 / (c0 + 1.6)
+        delta0 = ((target - sh["d0_p"][None]) * on_path).sum(dim=0)
+        hits0 = on_path.sum(dim=0)
+        delta0 = delta0 / torch.clamp(hits0, min=1.0)
+        hits0 = torch.clamp(hits0, max=1.0)
+        sh["d0_p"] = torch.clamp(sh["d0_p"] + r0 * delta0, 1e-4, 1 - 1e-4)
+        sh["d0_c"] = torch.clamp(c0 + hits0, max=float(CNT_CAP))
 
     # ---- d1/d2/bracket arena
-    newd = torch.where(onp_b[:, None, :],
-                       _slot_update(aux["d12rows"], target[:, None, :]),
-                       aux["d12rows"])
+    newd = torch.where(
+        onp_b[:, None, :],
+        _slot_update_int(aux["d12rows"], target_i[:, None, :]) if port else
+        _slot_update(aux["d12rows"], target[:, None, :]), aux["d12rows"])
     _set_rows(sh["d12"], aux["d12_idx"], newd)
 
     # ---- PPM counts (update exclusion PPM_UPD, halve-on-overflow)
@@ -1193,16 +1453,25 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte):
     # ---- SEE: escape estimates toward observed escape events
     obs_eff = torch.gather(aux["pcnt_eff"], 2, byte[:, None, None].expand(
         B, g.n_ppm, 1))[:, :, 0]
-    esc_t = (obs_eff == 0).float()
-    see_msk = (aux["ptot"] > 0).float()
-    d_see = SEE_RATE * (esc_t - aux["see_p"]) * see_msk
     see_flat = (p_ar * SEE_DIST_B + aux["see_d"]) * SEE_TOT_B + aux["see_t"]
     n_see = g.n_ppm * SEE_DIST_B * SEE_TOT_B
-    see_cnt = _scatter_add(n_see, see_flat, see_msk)
-    see_acc = _scatter_add(n_see, see_flat, d_see)
-    sh["ppm_see"] = torch.clamp(
-        sh["ppm_see"] + (see_acc / torch.clamp(see_cnt, min=1.0)
-                         ).view_as(sh["ppm_see"]), 1e-3, 1.0 - 1e-3)
+    if port:
+        see_msk = (aux["ptot"] > 0).to(i32)
+        d_see = ((((obs_eff == 0).to(i32) * 4096 - aux["see_p"]) * 82)
+                 >> 12) * see_msk
+        see_cnt = _scatter_add(n_see, see_flat, see_msk)
+        see_acc = _scatter_add(n_see, see_flat, d_see)
+        sh["ppm_see"] = torch.clamp(
+            sh["ppm_see"] + (see_acc // torch.clamp(see_cnt, min=1)
+                             ).view_as(sh["ppm_see"]), 4, 3891)
+    else:
+        see_msk = (aux["ptot"] > 0).float()
+        d_see = SEE_RATE * ((obs_eff == 0).float() - aux["see_p"]) * see_msk
+        see_cnt = _scatter_add(n_see, see_flat, see_msk)
+        see_acc = _scatter_add(n_see, see_flat, d_see)
+        sh["ppm_see"] = torch.clamp(
+            sh["ppm_see"] + (see_acc / torch.clamp(see_cnt, min=1.0)
+                             ).view_as(sh["ppm_see"]), 1e-3, 1.0 - 1e-3)
 
     # ---- state bank: advance the 8 path slots' automaton states
     NS = g.n_sbank
@@ -1213,15 +1482,25 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte):
     nxt01 = C.snext01[s_ar, s8]
     nxt8 = torch.where(t8[:, None, :] == 1, nxt01 >> 8, nxt01 & 0xFF)
     pm = sh["sbank_p"][s_ar, s8]
-    errs = t8[:, None, :] - pm
     sflat = s_ar * 256 + s8
-    sb_cnt = _scatter_add(NS * 256, sflat, torch.ones_like(errs))
-    sb_acc = _scatter_add(NS * 256, sflat, SBANK_RATE * errs)
-    sh["sbank_p"] = torch.clamp(
-        sh["sbank_p"] + (sb_acc / torch.clamp(sb_cnt, min=1.0)).view(NS, 256),
-        1e-4, 1 - 1e-4)
-    p_nxt = sh["sbank_p"][s_ar, nxt8]
-    st13 = torch.clamp(_stretch_f(p_nxt) * 256.0 + 4096.0, 0, 8191).int()
+    if port:
+        d12s = (1311 * (t8_i[:, None, :] * 4096 - pm)) >> 16  # 0.02*65536
+        sb_cnt = _scatter_add(NS * 256, sflat, torch.ones_like(d12s))
+        sb_acc = _scatter_add(NS * 256, sflat, d12s)
+        sh["sbank_p"] = torch.clamp(
+            sh["sbank_p"] + (sb_acc // torch.clamp(sb_cnt, min=1)
+                             ).view(NS, 256), 1, 4095)
+        st13 = stretch13_lut(sh["sbank_p"][s_ar, nxt8])
+    else:
+        errs = t8[:, None, :] - pm
+        sb_cnt = _scatter_add(NS * 256, sflat, torch.ones_like(errs))
+        sb_acc = _scatter_add(NS * 256, sflat, SBANK_RATE * errs)
+        sh["sbank_p"] = torch.clamp(
+            sh["sbank_p"] + (sb_acc / torch.clamp(sb_cnt, min=1.0)
+                             ).view(NS, 256), 1e-4, 1 - 1e-4)
+        p_nxt = sh["sbank_p"][s_ar, nxt8]
+        st13 = torch.clamp(_stretch_f(p_nxt) * 256.0 + 4096.0, 0, 8191
+                           ).int()
     packed = nxt8.int() | (st13 << 8)
     new_srows = srows.scatter(2, n8[:, None, :].expand(B, NS, 8), packed)
     _set_rows(sh["sbank"].view(-1, 256),
@@ -1242,12 +1521,28 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte):
         d_mc = d_mc / torch.clamp(n_mc, min=1.0)
         sh[key] = torch.clamp(sh[key] + d_mc, 1e-3, 1 - 1e-3)
 
-    _mc_update("match_conf", aux["exp_bit"], aux["alive"], aux["conf"],
-               aux["lenb"])
-    _mc_update("match2_conf", aux["exp_bit2"], aux["alive2"], aux["conf2"],
-               aux["lenb2"])
-    _mc_update("runx_conf", aux["rx_bit"], aux["rx_alive"], aux["rx_conf"],
-               aux["rx_b"])
+    def _mc_update_int(key, exp_bit, alive_m, conf, lenb):
+        w_i = alive_m.to(i32) * onp_i[:, None, :]            # (B, NM, 256)
+        n_al = w_i.sum(dim=2).to(i32)
+        hits = ((exp_bit == target_i[:, None, :]).to(i32) * w_i
+                ).sum(dim=2).to(i32)
+        frac12 = (hits << 12) // torch.clamp(n_al, min=1)
+        derr = (((frac12 - conf) * 123) >> 12) \
+            * torch.clamp(n_al, max=1)                       # 0.03 * 4096
+        oh_len = (C.ar32[None, None, :] == lenb[:, :, None]).to(i32)
+        d_mc = (oh_len * derr[:, :, None]).sum(dim=0).to(i32)
+        n_mc = (oh_len * (derr != 0).to(i32)[:, :, None]).sum(dim=0).to(i32)
+        sh[key] = torch.clamp(sh[key] + d_mc // torch.clamp(n_mc, min=1),
+                              4, 4092)
+
+    mc = _mc_update_int if port else _mc_update
+    mc("match_conf", aux["exp_bit"], aux["alive"], aux["conf"], aux["lenb"])
+    mc("match2_conf", aux["exp_bit2"], aux["alive2"], aux["conf2"],
+       aux["lenb2"])
+    mc("runx_conf", aux["rx_bit"], aux["rx_alive"], aux["rx_conf"],
+       aux["rx_b"])
+    if port:
+        return _update_mixers_int(g, C, sh, aux, target_i, onp_i, n8, t8_i)
 
     # ---- mixers (MIX_NORM: per-row means over the blocks hitting a row)
     x = aux["x"]
@@ -1295,17 +1590,13 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte):
     errp = (t8 - p_tree_p) * APM_RATE
     j33 = C.j33[None, None, :]
 
-    def apm_row_delta(tl, frac):
-        tl_p = torch.gather(tl, 1, n8)
-        f_p = torch.gather(frac, 1, n8)
-        oh_l = (j33 == tl_p[:, :, None]).float()
-        oh_r = (j33 == (tl_p + 1)[:, :, None]).float()
-        return (oh_l * ((1 - f_p) * errp)[:, :, None]
-                + oh_r * (f_p * errp)[:, :, None]).sum(dim=1)
-
-    d_apm = torch.stack([apm_row_delta(a, b)
-                         for a, b in zip(aux["tls"], aux["frs"])], dim=1)
-    newapm = torch.clamp(aux["apm_rows"] + d_apm, 1e-4, 1 - 1e-4)
+    # every APM row is read at the same (tl, frac): one in-row delta
+    tl_p = torch.gather(aux["apm_tl"], 1, n8)
+    f_p = torch.gather(aux["apm_frac"], 1, n8)
+    d_apm = ((j33 == tl_p[:, :, None]).float() * ((1 - f_p) * errp)[:, :, None]
+             + (j33 == (tl_p + 1)[:, :, None]).float()
+             * (f_p * errp)[:, :, None]).sum(dim=1)
+    newapm = torch.clamp(aux["apm_rows"] + d_apm[:, None], 1e-4, 1 - 1e-4)
     _set_rows(sh["apm"], aux["apm_idx"], newapm)
 
     # ---- final blend weights (match-state gated, count-normalized)
@@ -1316,6 +1607,89 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte):
     sh["w_apm"] = torch.clamp(
         sh["w_apm"] + lr * acc / torch.clamp(cnt[:, None], min=1.0),
         -4.0, 4.0)
+    return sh
+
+
+def _update_mixers_int(g, C, sh, aux, target_i, onp_i, n8, t8_i):
+    """Integer mixer, APM and final-blend updates (portable profile; JAX
+    engine _update_mixers_int).  Errors are p12, inputs st256; deltas land
+    in 16-bit-fraction weights as (lr12 * ((err*x) >> 8)) >> 8, every
+    batch aggregation is an integer sum or scatter-add (exact in any
+    order), the MIX_NORM means floor divisions, and weights clip to
+    +-8*65536 (the _idot bound)."""
+    i32 = torch.int32
+    lr12 = max(1, int(round(MIX_LR * 4096)))
+    B = target_i.shape[0]
+    wclip = 8 * 65536
+    x = aux["x"]
+    sum_b = lambda v: v.sum(dim=0).to(i32)                    # noqa: E731
+
+    def lvl_sum(e, y):
+        # sum_k [level(k) == l] e[b, k] y[b, n, k], each (l, b) >> 8, then
+        # the batch mean: (8, N)
+        d = ieinsum("lk,bk,bnk->lbn", C.lvl_i, e, y) >> 8
+        return d.sum(dim=1).to(i32) // B
+
+    def rows_mean(n, idx, d):
+        cnt = _scatter_add(n, idx, torch.ones(idx.shape, dtype=i32,
+                                              device=idx.device))
+        acc = _scatter_add(n, idx, d)
+        return acc // torch.clamp(cnt, min=1).view((n,) + (1,) * (d.dim()
+                                                                - idx.dim()))
+
+    def step(w, d, clip=wclip):
+        return torch.clamp(w + ((lr12 * d) >> 8), -clip, clip)
+
+    # ---- layer 1: constant row, level rows, gated rows, biases
+    err1 = (target_i[:, None, :] * 4096 - aux["p1"]) * onp_i[:, None, :]
+    dws8 = ieinsum("bmk,bnk->bmn", err1, x) >> 8             # (B, M1, NIN)
+    n_pri = g.n_primary
+    dws8 = torch.cat([dws8[:, :, :n_pri], dws8[:, :, n_pri:] >> 2], dim=2)
+    w1 = sh["w1"].clone()
+    w1[0] = step(aux["w_const"], sum_b(dws8[:, 0]) // B)
+    w1[1:9] = step(aux["w_level"], lvl_sum(err1[:, 1], x))
+    sh["w1"] = step(w1, rows_mean(g.mix1_total, aux["dyn_idx"], dws8[:, 2:]))
+    sh["bias1"] = sh["bias1"] + ((lr12 * (sum_b(err1) // B)) >> 8)
+
+    # ---- layer 2: level rows, byte- and class-gated rows, gated rows
+    st1 = aux["st1"]
+    err2 = (target_i[:, None, :] * 4096 - aux["p2"]) * onp_i[:, None, :]
+    sh["w2"] = step(sh["w2"], lvl_sum(err2[:, 0], st1))
+    for key, idx, n, j in (("w2b", aux["b1"], 256, 1),
+                           ("w2c", aux["clsg"], 64, 2)):
+        d = ieinsum("bk,bmk->bm", err2[:, j], st1) >> 8
+        sh[key] = step(sh[key], rows_mean(n, idx, d))
+    d2x = ieinsum("bjk,bmk->bjm", err2[:, 3:], st1) >> 8
+    sh["w2x"] = step(sh["w2x"], rows_mean(g.mix2_total, aux["dyn2_idx"],
+                                          d2x))
+    sh["bias2"] = sh["bias2"] + ((lr12 * (sum_b(err2) // B)) >> 8)
+
+    # ---- layer 3
+    err3 = (target_i * 4096 - aux["p_mix"]) * onp_i
+    sh["w3"] = step(sh["w3"], lvl_sum(err3, aux["st2"]))
+    sh["bias3"] = sh["bias3"] + ((lr12 * (sum_b(err3) // B)) >> 8)
+
+    # ---- APMs: integer deltas at the 8 path nodes, scatter-add, clip
+    errp = (((t8_i * 4096 - torch.gather(aux["p_tree12"], 1, n8)) * 82)
+            >> 12)                                           # 0.02 * 4096
+    j33 = C.j33[None, None, :]
+
+    # every APM row is read at the same (tl, frac): one in-row delta
+    tl_p = torch.gather(aux["apm_tl"], 1, n8)
+    f_p = torch.gather(aux["apm_frac"], 1, n8)
+    d_apm = ((j33 == tl_p[:, :, None]).to(i32)
+             * (((128 - f_p) * errp) >> 7)[:, :, None]
+             + (j33 == (tl_p + 1)[:, :, None]).to(i32)
+             * ((f_p * errp) >> 7)[:, :, None]).sum(dim=1).to(i32)
+    sh["apm"] = torch.clamp(sh["apm"] + _scatter_add(
+        APM_ROWS, aux["apm_idx"], d_apm[:, None].expand(-1, N_APM, -1)),
+        1, 4095)
+
+    # ---- final blend weights (match-state gated, count-normalized)
+    err_f = (target_i * 4096 - aux["p_tree12"]) * onp_i
+    dwa = ieinsum("bk,bjk->bj", err_f, aux["st_in"]) >> 8
+    sh["w_apm"] = step(sh["w_apm"], rows_mean(64, aux["longest"], dwa),
+                       clip=262144)
     return sh
 
 
@@ -1376,7 +1750,9 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device):
     place where that saves a copy.  t is the Python int byte index."""
     C = _Consts(g, device)
     imask = (1 << cfg.ibits) - 1
-    lcfg = _lstm_cfg(cfg)
+    lcfg = _lstm_cfg(cfg, g)
+    lstm_update = (ilstm_shared_byte_update if g.port
+                   else lstm_shared_byte_update)
     ind_off = 2 * g.n_match * (1 << cfg.mbits) + torch.arange(
         g.n_ind, device=device) * (1 << cfg.ibits)
 
@@ -1395,7 +1771,10 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device):
                                      ].long() & M32
 
         p_tree, aux = _predict_tree_b(cfg, g, C, sh, pb, t)
-        p16_tree = torch.clamp((p_tree * 65536.0).long(), 64, 65472)
+        if g.port:
+            p16_tree = p_tree.long()         # already p16, clipped
+        else:
+            p16_tree = torch.clamp((p_tree * 65536.0).long(), 64, 65472)
         vf = sh["vocab_force"][None, :]
         p16_tree = torch.where(vf == 1, 64,
                                torch.where(vf == 2, 65472, p16_tree))
@@ -1450,8 +1829,8 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device):
         pb["ind_val"] = sh["aux_tbl"][ind_off[None, :] + ind_keys(pb["ctx"])
                                       ].long() & M32
         if cfg.lstm_hidden:
-            sh["lstm"], pb["lstm"] = lstm_shared_byte_update(
-                lcfg, sh["lstm"], pb["lstm"], byte)
+            sh["lstm"], pb["lstm"] = lstm_update(lcfg, sh["lstm"],
+                                                 pb["lstm"], byte)
         return sh, pb, cd, torch.stack(emits, dim=1), c32
 
     return byte_step

@@ -14,6 +14,10 @@ layout existed only for TPU VMEM.  ``plan_step`` turns a coded byte into
 applies them and walks the byte tree.  On a CUDA tensor that is one launch
 of the hand-written kernel ``csrc/dmc_fused.cu``; on a CPU tensor it is the
 plain PyTorch version (``_apply_plain`` + ``_walk_plain``) beside it.
+
+``counts_walk`` is the JAX package's second DMC kernel, the prediction-only
+walk (``csrc/dmc_counts.cu``, plain version ``_counts_plain``); like its
+TPU original it is reached from no entry point of the system.
 """
 
 import ctypes
@@ -112,14 +116,26 @@ def _walk_plain(nxt, cnt, cur, levels):
 # ---------------------------------------------------------- CUDA kernel
 
 
-def _kernel_lib():
-    lib = build.load("dmc_fused")
+def _kernel_lib(name, n_ptr):
+    """The built ``csrc/<name>.cu``: n_ptr pointers, then (batch, n_nodes,
+    levels) ints and the stream."""
+    lib = build.load(name)
+    fn = getattr(lib, name)
     if not getattr(lib, "_argtypes_set", False):
-        lib.dmc_fused.restype = ctypes.c_int
-        lib.dmc_fused.argtypes = [ctypes.c_void_p] * 12 + [
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib._argtypes_set = True
-    return lib
+    return fn
+
+
+def _check_operands(name, args, shapes, device):
+    for a, s in zip(args, shapes):
+        if (a.device != device or a.dtype != torch.int32
+                or tuple(a.shape) != s or not a.is_contiguous()):
+            raise ValueError(
+                f"{name}: expected contiguous int32 {s} on {device}, "
+                f"got {a.dtype} {tuple(a.shape)} on {a.device}")
 
 
 def fused_apply_walk(nxt, cnt, cur, uX, uXC, uS, uSW, uU, uUW, levels):
@@ -135,20 +151,15 @@ def fused_apply_walk(nxt, cnt, cur, uX, uXC, uS, uSW, uU, uUW, levels):
         return _walk_plain(nxt, cnt, cur, levels)
     B, N = nxt.shape
     args = (nxt, cnt, cur, uX, uXC, uS, uSW, uU, uUW)
-    shapes = ((B, N), (B, N), (B,), (B, N_UX), (B, N_UX), (B, N_UP),
-              (B, N_UP), (B, N_UP), (B, N_UP))
-    for a, s in zip(args, shapes):
-        if (a.device != nxt.device or a.dtype != torch.int32
-                or tuple(a.shape) != s or not a.is_contiguous()):
-            raise ValueError(
-                f"dmc_fused: expected contiguous int32 {s} on {nxt.device}, "
-                f"got {a.dtype} {tuple(a.shape)} on {a.device}")
+    _check_operands("dmc_fused", args, (
+        (B, N), (B, N), (B,), (B, N_UX), (B, N_UX), (B, N_UP), (B, N_UP),
+        (B, N_UP), (B, N_UP)), nxt.device)
     cw = torch.empty((B, 1 << levels), dtype=torch.int32, device=nxt.device)
     vis = torch.empty_like(cw)
     wn = torch.empty((B, 1 << (levels - 1)), dtype=torch.int32,
                      device=nxt.device)
     stream = torch.cuda.current_stream(nxt.device).cuda_stream
-    rc = _kernel_lib().dmc_fused(
+    rc = _kernel_lib("dmc_fused", 12)(
         *(a.data_ptr() for a in args), cw.data_ptr(), vis.data_ptr(),
         wn.data_ptr(), B, N, levels, stream)
     if rc != 0:
@@ -158,6 +169,41 @@ def fused_apply_walk(nxt, cnt, cur, uX, uXC, uS, uSW, uU, uUW, levels):
 
 
 fused_apply_walk.launches = 0
+
+
+def _counts_plain(nxt, cnt, cur, levels):
+    """Count words of the 2^L walked states, zero-padded: (B, 256) int32."""
+    cw = _walk_plain(nxt, cnt, cur, levels)[0]
+    return torch.cat([cw, torch.zeros((cw.shape[0], 256 - cw.shape[1]),
+                                      dtype=cw.dtype, device=cw.device)],
+                     dim=1)
+
+
+def counts_walk(nxt, cnt, cur, levels):
+    """Prediction-only walk (no pending updates; the tables are only
+    read) -> (B, 256) int32 count words, zero past 2^levels.
+
+    CUDA tensors launch ``csrc/dmc_counts.cu`` (counted in
+    ``counts_walk.launches``); CPU tensors take ``_counts_plain``."""
+    if not 1 <= levels <= 8:
+        raise ValueError(f"levels={levels} outside 1..8")
+    if not nxt.is_cuda:
+        return _counts_plain(nxt, cnt, cur, levels)
+    B, N = nxt.shape
+    _check_operands("dmc_counts", (nxt, cnt, cur), ((B, N), (B, N), (B,)),
+                    nxt.device)
+    out = torch.empty((B, 256), dtype=torch.int32, device=nxt.device)
+    stream = torch.cuda.current_stream(nxt.device).cuda_stream
+    rc = _kernel_lib("dmc_counts", 4)(
+        nxt.data_ptr(), cnt.data_ptr(), cur.data_ptr(), out.data_ptr(), B, N,
+        levels, stream)
+    if rc != 0:
+        raise RuntimeError(f"dmc_counts launch failed: CUDA error {rc}")
+    counts_walk.launches += 1
+    return out
+
+
+counts_walk.launches = 0
 
 
 # ------------------------------------------------------------ model API
@@ -187,6 +233,20 @@ def probs_from_counts(cw):
             (probs.shape[0], 256 - probs.shape[1]), 0.5,
             dtype=probs.dtype, device=probs.device)], dim=1)
     return probs
+
+
+def p12_from_counts(cw):
+    """Integer twin (portable profile): p12 int32 (B, 256), the same
+    (c1+0.3)/(c0+c1+0.6) as an exact floor division, 2048 past the walk."""
+    c0u, c1u = _unpack(cw)
+    num = 10 * c1u + 3 * UNIT
+    den = 10 * (c0u + c1u) + 6 * UNIT
+    p12 = torch.clamp((num << 12) // den, 1, 4095)
+    if p12.shape[1] < 256:
+        p12 = torch.cat([p12, torch.full(
+            (p12.shape[0], 256 - p12.shape[1]), 2048, dtype=p12.dtype,
+            device=p12.device)], dim=1)
+    return p12
 
 
 def _g1(tbl, i):

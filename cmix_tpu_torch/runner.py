@@ -8,14 +8,18 @@ incompressible block stored raw, and a decode group re-feeding raw-stored
 and padding lanes in encode mode so the shared model evolves exactly as it
 did while encoding.
 
-This slice codes the fast profile at two gate sets (the defaults and the
-bench speed profile) on inputs whose content detection finds only text and
-raw segments.  Everything else raises NotImplementedError naming the
-ROADMAP.md item that will port it: a dictionary (WRT + pretraining),
-``--resume``, EXE/media/JPEG content (content-routed gates and
-transforms), and archives that carry a segment table.
+The port codes the fast profile at two gate sets (the defaults and the
+bench speed profile) and the portable integer profile (PORT=1 on top of
+the defaults, ``--portable``), on inputs whose content detection finds only
+text and raw segments.  A portable archive is byte-identical to the JAX
+package's and decodes on either package and any device.  Everything else
+raises NotImplementedError naming the ROADMAP.md item that will port it: a
+dictionary (WRT + pretraining), ``--resume``, EXE/media/JPEG content
+(content-routed gates and transforms), and archives that carry a segment
+table.
 
-    python -m cmix_tpu_torch.runner c|d|t INPUT OUTPUT [--device cpu]
+    python -m cmix_tpu_torch.runner c|d|t INPUT OUTPUT [--portable]
+        [--device cpu]
 """
 
 import argparse
@@ -116,8 +120,9 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
              device="cuda", resume_path=None) -> bytes:
     """Compress ``data`` into a TCMX archive.
 
-    gates: mapping of gate name -> value (missing = default); this slice
-    accepts the defaults and ``engine.BENCH_GATES``."""
+    gates: mapping of gate name -> value (missing = default); the port
+    accepts the defaults, ``engine.BENCH_GATES``, and PORT=1 (with any
+    ILSTM_LRX/ILSTM_ADAM) on top of the defaults."""
     if dictionary is not None:
         raise NotImplementedError(
             f"--dict is not ported to cmix_tpu_torch yet ({_LATER_DICT})")
@@ -273,6 +278,10 @@ def main(argv=None):
                     help="where the model runs (cpu only when asked)")
     ap.add_argument("--resume", default=None, metavar="JOURNAL",
                     help="failure-recovery journal (not ported yet: raises)")
+    ap.add_argument("--portable", action="store_true",
+                    help="portable profile (PORT=1): integer model math, "
+                    "archives decode bit-exactly on any device and with "
+                    "the JAX package")
     args = ap.parse_args(argv)
     with open(args.input, "rb") as f:
         data = f.read()
@@ -284,8 +293,9 @@ def main(argv=None):
                            lstm_hidden=args.lstm, dmc_nodes=args.dmc,
                            lstm_horizon=horizon)
         out = compress(data, cfg, max_batch=args.max_batch,
-                       dictionary=args.dictionary, device=args.device,
-                       resume_path=args.resume)
+                       dictionary=args.dictionary,
+                       gates={"PORT": 1} if args.portable else None,
+                       device=args.device, resume_path=args.resume)
         if args.mode == "t":
             back = decompress(out, device=args.device)
             assert back == data, "ROUNDTRIP FAILED"

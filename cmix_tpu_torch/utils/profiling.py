@@ -1,11 +1,11 @@
 """Where a byte step's time goes on the GPU (torch.profiler).
 
     python -m cmix_tpu_torch.utils.profiling [--batch 256] [--steps 8]
-                                             [--gates bench|default]
+                                             [--gates bench|default|portable]
 
 Builds the byte step of the bench speed profile (bench widths, the blocks
-of ``testdata/bench4m.raw``) or of the default gates at the same widths,
-warms it up, then traces ``--steps`` steps with CPU and CUDA activities and
+of ``testdata/bench4m.raw``), or of the default gates or the portable
+profile (PORT=1 on the default gates) at the same widths, warms it up, then traces ``--steps`` steps with CPU and CUDA activities and
 prints one JSON line: wall ms per step (host clock, synchronised), device
 busy ms per step (the sum of kernel and copy times on the one stream) and
 the idle share, kernel launches and operator calls per step, the top
@@ -34,7 +34,8 @@ def _dev_us(evt):
 
 def profile_steps(batch=256, warm=4, steps=8, gates="bench"):
     dev = E.resolve_device("cuda")
-    g = E.make_gates(E.BENCH_GATES if gates == "bench" else {})
+    g = E.make_gates({"bench": E.BENCH_GATES, "default": {},
+                      "portable": {"PORT": 1}}[gates])
     cfg = E.EngineConfig(block_size=16384, tbits=18, mbits=18, ibits=16,
                          lstm_hidden=256, seg_size=2048, dmc_nodes=16384,
                          lstm_horizon=4)
@@ -91,7 +92,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--warm", type=int, default=4)
     ap.add_argument("--steps", type=int, default=8)
-    ap.add_argument("--gates", choices=["bench", "default"], default="bench")
+    ap.add_argument("--gates", choices=["bench", "default", "portable"],
+                    default="bench")
     args = ap.parse_args(argv)
     print(json.dumps(profile_steps(args.batch, args.warm, args.steps,
                                    args.gates)))

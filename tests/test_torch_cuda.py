@@ -50,6 +50,26 @@ def test_dmc_kernel_matches_plain_version(gpu, levels):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("levels", [8, 7, 1])
+def test_counts_kernel_matches_plain_version(gpu, levels):
+    B, N = 16, 4096
+    pb = dmc.init_dmc_perblock(N, B, gpu)
+    rng = np.random.default_rng(10 + levels)
+    for _ in range(40):
+        upd, walk = dmc.predict_step(pb, levels)
+        pb.update(upd)
+        pb.update(dmc.plan_step(pb, walk, torch.as_tensor(
+            rng.integers(0, 256, B), device=gpu), levels))
+    nxt, cnt, cur = pb["dmc_nxt"], pb["dmc_cnt"], pb["dmc_cur"]
+    n0 = dmc.counts_walk.launches
+    got = dmc.counts_walk(nxt, cnt, cur, levels)
+    assert dmc.counts_walk.launches == n0 + 1
+    want = dmc._counts_plain(nxt, cnt, cur, levels)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not got[:, 1 << levels:].any()
+
+
 def test_kernel_wrapper_rejects_bad_operands(gpu):
     pb = dmc.init_dmc_perblock(4096, 2, gpu)
     args = [pb[k] for k in ("dmc_nxt", "dmc_cnt", "dmc_cur")
@@ -71,3 +91,21 @@ def test_roundtrip_on_gpu_goes_through_the_kernel(gpu):
     assert dmc.fused_apply_walk.launches == 64
     assert runner.decompress(arc, device=gpu) == data
     assert runner.compress(data, cfg, device=gpu) == arc
+
+
+@pytest.mark.parametrize("gates", [{"PORT": 1}, {"PORT": 1, "ILSTM_ADAM": 1,
+                                                   "ILSTM_LRX": 6}])
+def test_portable_roundtrip_on_gpu_matches_the_cpu(gpu, gates):
+    """PORT=1 on the card: exact round trip through the kernel, and the
+    archive byte-identical to the CPU's (the portable contract)."""
+    cfg = E.EngineConfig(block_size=64, seg_size=64, tbits=12, mbits=12,
+                         ibits=10, pbits=12, lstm_hidden=32,
+                         lstm_horizon=4, dmc_nodes=4096)
+    with open("testdata/text100k.raw", "rb") as f:
+        data = f.read()[4000:4160]
+    kw = dict(max_batch=2, gates=gates)
+    dmc.fused_apply_walk.launches = 0
+    arc = runner.compress(data, cfg, device=gpu, **kw)
+    assert dmc.fused_apply_walk.launches == 128          # two groups
+    assert runner.decompress(arc, device=gpu) == data
+    assert runner.compress(data, cfg, device="cpu", **kw) == arc

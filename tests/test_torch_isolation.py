@@ -21,7 +21,8 @@ def _port_modules():
 
 def test_every_module_imports_with_jax_and_cmix_tpu_blocked():
     mods = _port_modules()
-    assert "cmix_tpu_torch.engine" in mods and len(mods) > 15
+    assert {"cmix_tpu_torch.engine", "cmix_tpu_torch.mixer.ilstm",
+            "cmix_tpu_torch.utils.intmath"} <= set(mods) and len(mods) > 15
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'jax.numpy', 'cmix_tpu'):\n"
@@ -47,6 +48,8 @@ def test_no_jax_or_cmix_tpu_import_in_sources():
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith((".py", ".cu"))]
     assert len(files) > 15
+    for name in ("csrc/dmc_counts.cu", "mixer/ilstm.py", "utils/intmath.py"):
+        assert os.path.join(ROOT, "cmix_tpu_torch", name) in files
     hits = []
     for path in files:
         with open(path) as f:

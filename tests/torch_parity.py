@@ -3,6 +3,9 @@
 Not a test module: the test files import it (pytest puts tests/ on the path).
 """
 
+import contextlib
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -89,12 +92,8 @@ def check_runner_against_jax(env):
     from cmix_tpu_torch import runner as tr
     with open("testdata/text100k.raw", "rb") as f:
         data = f.read()[1000:1320]
-    prev = je.gates_blob()
-    je.update_gates(env)
-    try:
+    with jax_runner_gates(env):
         aj = jr.compress(data, je.EngineConfig(**RUNNER_KW), max_batch=3)
-    finally:
-        je.apply_gates(prev)
     at = tr.compress(data, te.EngineConfig(**RUNNER_KW), max_batch=3,
                      gates=env, device="cpu")
     off = 4 + tr._HDR_LEN
@@ -123,20 +122,56 @@ def archive_sizes(env, nbytes, block):
     kw = dict(RUNNER_KW, block_size=block, seg_size=min(block, 256))
     with open("testdata/text100k.raw", "rb") as f:
         data = f.read()[:nbytes]
-    prev = je.gates_blob()
-    je.update_gates(env)
-    try:
+    with jax_runner_gates(env):
         aj = jr.compress(data, je.EngineConfig(**kw))
-    finally:
-        je.apply_gates(prev)
     at = tr.compress(data, te.EngineConfig(**kw), gates=env, device="cpu")
     return len(aj), len(at)
 
 
-if __name__ == "__main__":
+# ---- the portable profile: the JAX package's archives, PORT=1
+
+
+@contextlib.contextmanager
+def jax_runner_gates(env):
+    """``cmix_tpu.runner`` with ``env``'s gates live; the process's gates
+    are restored after, and the transcoder cache (keyed by the config
+    alone, with the gates baked in at trace time) is dropped both ways."""
+    from cmix_tpu import engine as je
+    from cmix_tpu import runner as jr
+    prev = je.gates_blob()
+    je.update_gates(env)
+    jr._TRANSCODER_CACHE.clear()
+    try:
+        yield jr
+    finally:
+        je.apply_gates(prev)
+        jr._TRANSCODER_CACHE.clear()
+
+
+def port_fixture():
+    """(input bytes, the JAX package's PORT=1 archive of it) for the
+    committed fixture that chip_smoke.py decodes and re-encodes."""
+    import chip_smoke
+    from cmix_tpu import engine as je
+    with open(chip_smoke.PORT_FIXTURE, "rb") as f:
+        data = f.read()
+    with jax_runner_gates({"PORT": 1}) as jr:
+        arc = jr.compress(data, je.EngineConfig(**chip_smoke.PORT_SMALL),
+                          max_batch=chip_smoke.PORT_BATCH)
+    return data, arc
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["--write-fixture"]:
+    # python tests/torch_parity.py --write-fixture: (re)write the portable
+    # fixture's archive with the JAX package on the CPU
+    import chip_smoke
+    _, arc = port_fixture()
+    with open(chip_smoke.PORT_ARCHIVE, "wb") as f:
+        f.write(arc)
+    print(f"{chip_smoke.PORT_ARCHIVE}: {len(arc)} bytes")
+elif __name__ == "__main__":
     # python tests/torch_parity.py [nbytes] [block]: the archive size gap
     # between the port and the JAX package on the CPU, both gate sets
-    import sys
     from cmix_tpu_torch.engine import BENCH_GATES
     nbytes = int(sys.argv[1]) if len(sys.argv) > 1 else 8192
     block = int(sys.argv[2]) if len(sys.argv) > 2 else 1024
