@@ -7,14 +7,20 @@ package, needs one CUDA device and fails (non-zero exit, no result line)
 without one.  Phases, each of which raises on failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build every CUDA kernel from ``cmix_tpu_torch/csrc`` (nvcc, sm_90a), one
-   nvcc per source, all started together;
+2. build every CUDA kernel from ``cmix_tpu_torch/csrc`` (nvcc, sm_90a, with
+   ``-Xptxas -v``: registers, shared memory, spills), one nvcc per source,
+   all started together;
 3. each kernel against its plain PyTorch version on the card, bit-exact,
-   with CUDA-event times, at B=256 blocks, N=16384 nodes, L=8 and L=7
-   levels, from DMC states after real ``plan_step``s on
-   ``testdata/bench4m.raw``: the apply+walk (``dmc_fused``, with the
-   pending descriptors) and the prediction-only walk (``dmc_counts``, on
-   the tables with the descriptors applied);
+   at B=256 blocks, N=16384 nodes and every walk depth L in 1..8, on DMC
+   states after real ``plan_step``s on ``testdata/bench4m.raw`` and on the
+   edge-case descriptor sets of ``dmc_edge_cases``: the apply+walk
+   (``dmc_fused``, with the pending descriptors) and the prediction-only
+   walk (``dmc_counts``, on the tables with the descriptors applied).
+   Then device times at every L (``_device_ms``: a device sleep covers the
+   host's enqueue, so the events time the device; tables cold and warm),
+   the wrappers' host µs per call, the per-level slope and the chain
+   floor (L+1 levels at that slope); then both kernels at the larger pools
+   N=32768 and N=65536 (L=8), checked and timed the same way;
 4. the fast profile's main path: ``runner.compress`` then
    ``runner.decompress`` at the CLI widths and default gates on a text
    prefix of ``testdata/text100k.raw`` (size and block size cut, printed),
@@ -54,6 +60,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MAIN_KIB, MAIN_BLOCK = 8, 512
 SMALL_BLOCK = 256               # the CPU-vs-card size check, 1 KiB
 BENCH_WARM, BENCH_STEPS = 8, 32
+# the DMC kernels: checked and timed at every walk depth; device times over
+# REPS launches, with COLD copies of the tables cycled (4 GiB at B=256,
+# N=16384, 16 GiB at N=65536; a launch reads ~1 MB of a young machine's
+# rows, so a copy's rows leave the 50 MB L2 of an H100 before it comes
+# round again)
+LEVELS = range(1, 9)
+REPS, COLD = 200, 128
+LARGE_POOLS = (32768, 65536)
 STEP_WARM, STEP_STEPS = 4, 16
 # the portable fixture: the JAX package's PORT=1 archive of PORT_FIXTURE,
 # made on the CPU at these small widths in one coding group
@@ -86,6 +100,8 @@ def _card():
 
 
 def _events_ms(fn, reps):
+    """ms per call of ``fn`` between two events around ``reps`` calls: the
+    caller's cost, host enqueue included (the plain versions' time)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -97,6 +113,45 @@ def _events_ms(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _device_ms(fns, reps):
+    """Device ms per launch of a kernel wrapper, which the host's enqueue
+    rate cannot bound: a device sleep (``torch.cuda._sleep``) is queued
+    first, long enough to cover the host's enqueue of all ``reps`` calls
+    (``fns[i % len(fns)]``), so the launches run back to back after it and
+    the events around them time the device.  Raises unless the event
+    after the sleep was still pending when the host had queued the last
+    call.  -> dict(ms, host_us per call, sleep_ms, enqueue_ms)."""
+    import torch
+    fns[0]()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fns[i % len(fns)]()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    s0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    for _ in range(3):
+        # cycles at <= 2 GHz (the H100's clock is below): >= 2x the enqueue
+        s0.record()
+        torch.cuda._sleep(int(4e9 * enqueue) + 2_000_000)
+        a.record()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            fns[i % len(fns)]()
+        enqueue = time.perf_counter() - t0
+        covered = not a.query()     # the device was still in the sleep
+        b.record()
+        torch.cuda.synchronize()
+        slept = s0.elapsed_time(a)
+        if covered:
+            return dict(ms=a.elapsed_time(b) / reps,
+                        host_us=enqueue / reps * 1e6, sleep_ms=slept,
+                        enqueue_ms=enqueue * 1e3)
+    raise RuntimeError(f"device timing: the device sleep ({slept:.3f} ms) "
+                       f"ended before the host had queued its {reps} calls "
+                       f"({enqueue * 1e3:.3f} ms)")
 
 
 def _cli_cfg(block):
@@ -167,6 +222,110 @@ def dmc_descriptors(B, N, levels, n_steps, device):
     return pb
 
 
+EDGE_CASES = ("none", "ux_dups", "clone_and_path", "on_path", "leaf_count",
+              "ids_0_and_last", "twins")
+# dmc_fused forwards its pending words through tables indexed by state id
+# in pools of up to TABLED_NODES states, and by comparing with every
+# descriptor in larger ones (csrc/dmc_fused.cu, kMaxTabled)
+TABLED_NODES = 16384
+
+
+def dmc_edge_cases(pb, levels, seed=0):
+    """Descriptor sets that real ``plan_step``s rarely produce, made from
+    ``seed`` on the tables and ``cur`` of the DMC state ``pb`` ->
+    {name: state}; each state shares pb's tables (clone before applying)
+    and has its own cur and six descriptor tensors.  As ``plan_step``
+    guarantees, every pointer word's child ids are < N and duplicate
+    indices inside a group carry identical words.
+
+    * ``none``: every descriptor -1;
+    * ``ux_dups``: all 24 count descriptors valid, 12 nodes twice each;
+    * ``clone_and_path``: a clone word and a path word on the same walked
+      node, with different words (the path word wins);
+    * ``on_path``: writes on cur and on a node of every walk level, so
+      that the written words change the path the walk takes;
+    * ``leaf_count``: count writes on nodes of the walk's last level;
+    * ``ids_0_and_last``: cur = N-1, and writes on nodes 0 and N-1 whose
+      words point at 0 and N-1;
+    * ``twins``: writes on walked nodes and on their twins, the nodes
+      TABLED_NODES further on (mod N), in every group, with a path word
+      on a node that has a clone word too (for N > TABLED_NODES, twins
+      agree in the low bits a table of TABLED_NODES entries would index)."""
+    import numpy as np
+    import torch
+    from cmix_tpu_torch.models import dmc
+    B, N = pb["dmc_nxt"].shape
+    vis = dmc._walk_plain(pb["dmc_nxt"], pb["dmc_cnt"], pb["dmc_cur"],
+                          levels)[1].cpu().numpy()
+    rng = np.random.default_rng(seed)
+
+    def ptr_words(*shape):
+        return (rng.integers(0, N, shape)
+                | (rng.integers(0, N, shape) << 16))
+
+    def cnt_words(*shape):
+        return rng.integers(0, 1 << 32, shape)
+
+    def on_level(lev, count):
+        """(B, count) random walked nodes of byte-tree level ``lev``."""
+        lo = 1 << lev
+        return vis[np.arange(B)[:, None],
+                   lo + rng.integers(0, lo, (B, count))]
+
+    def state(cur=None, **desc):
+        out = {"dmc_nxt": pb["dmc_nxt"], "dmc_cnt": pb["dmc_cnt"],
+               "dmc_cur": pb["dmc_cur"] if cur is None else
+               torch.as_tensor(cur, dtype=torch.int32,
+                               device=pb["dmc_cur"].device)}
+        for idx, word, n, make in (("X", "XC", dmc.N_UX, cnt_words),
+                                   ("S", "SW", dmc.N_UP, ptr_words),
+                                   ("U", "UW", dmc.N_UP, ptr_words)):
+            i = np.full((B, n), -1, np.int64)
+            given = desc.get(idx)
+            if given is not None:
+                i[:, :given.shape[1]] = given
+            w = desc.get(word, make(B, n)).copy()
+            for b in range(B):          # duplicates carry the first's word
+                _, first, inv = np.unique(i[b], return_index=True,
+                                          return_inverse=True)
+                w[b] = w[b][first][inv.reshape(-1)]
+            for key, a in ((idx, i), (word, w)):
+                out["dmc_u" + key] = torch.as_tensor(
+                    (a & 0xFFFFFFFF).astype(np.uint32).view(np.int32),
+                    device=pb["dmc_cur"].device)
+        return out
+
+    last = levels - 1
+    nodes = on_level(min(1, last), 8)
+    per_level = [on_level(lev, 3) for lev in range(levels)]
+    uX_dups = np.concatenate([nodes[:, :4], on_level(last, 8)], axis=1)
+    uX_dups = rng.permuted(np.concatenate([uX_dups, uX_dups], axis=1),
+                           axis=1)
+    ptr_levels = [on_level(lev, 1) for lev in range(max(1, last))][:8]
+    ends = np.array([[0, N - 1]] * B)
+    walked = np.concatenate([on_level(lev, 12) for lev in range(levels)],
+                            axis=1)
+    a = walked[:, rng.permutation(walked.shape[1])[:12]]
+    twin = (a + TABLED_NODES) % N
+    return {
+        "none": state(),
+        "ux_dups": state(X=uX_dups),
+        "clone_and_path": state(S=nodes, U=nodes),
+        "on_path": state(X=np.concatenate(per_level, axis=1)[:, :dmc.N_UX],
+                         S=np.concatenate(ptr_levels, axis=1),
+                         U=np.concatenate(per_level, axis=1)[:, 1::3][:, :8]),
+        "leaf_count": state(X=on_level(last, dmc.N_UX)),
+        "ids_0_and_last": state(
+            cur=np.full(B, N - 1), X=ends, S=ends[:, 1:], U=ends,
+            SW=np.full((B, dmc.N_UP), 0 | (N - 1) << 16),
+            UW=np.full((B, dmc.N_UP), (N - 1) | (N - 1) << 16)),
+        "twins": state(
+            X=np.concatenate([a, twin], axis=1),
+            U=np.concatenate([a[:, :4], twin[:, :4]], axis=1),
+            S=np.stack([a[:, 1], a[:, 4], twin[:, 4], a[:, 5]], axis=1)),
+    }
+
+
 def _compare(name, levels, pairs):
     import torch
     torch.cuda.synchronize()
@@ -177,62 +336,138 @@ def _compare(name, levels, pairs):
     return err
 
 
+def kernels_vs_plain(pb, levels, label):
+    """Both DMC kernels once on the state ``pb`` (its tables cloned)
+    against their plain versions: -> {name: max abs err}, raising on any
+    difference.  The prediction-only walk reads the applied tables."""
+    from cmix_tpu_torch.models import dmc
+    args = [pb["dmc_cur"]] + [pb[k] for k in dmc.DMC_UPD_KEYS]
+    nk, ck = pb["dmc_nxt"].clone(), pb["dmc_cnt"].clone()
+    npl, cpl = pb["dmc_nxt"].clone(), pb["dmc_cnt"].clone()
+    got = dmc.fused_apply_walk(nk, ck, *args, levels)
+    dmc._apply_plain(npl, cpl, *args[1:])
+    want = dmc._walk_plain(npl, cpl, args[0], levels)
+    errs = {"dmc_fused": _compare(f"dmc_fused, {label}", levels,
+                                  [(nk, npl), (ck, cpl)]
+                                  + list(zip(got, want)))}
+    got = dmc.counts_walk(npl, cpl, args[0], levels)
+    errs["dmc_counts"] = _compare(
+        f"dmc_counts, {label}", levels,
+        [(got, dmc._counts_plain(npl, cpl, args[0], levels))])
+    return errs
+
+
 def _bound_ms(nbytes, ops):
     return max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
 
 
-def check_dmc_kernels(device, B=256, N=16384, n_steps=50):
-    """Both DMC kernels vs their plain versions -> {name: {levels: res}}."""
+def _launchers(pb, levels, copies):
+    """{name: [one launch per copy of pb's tables]} for both kernels; the
+    fused kernel's set-writes are idempotent, so its repeats apply the same
+    descriptors again."""
+    import functools
     from cmix_tpu_torch.models import dmc
-    out = {"dmc_fused": {}, "dmc_counts": {}}
-    for levels in (8, 7):
-        pb = dmc_descriptors(B, N, levels, n_steps, device)
-        args = [pb["dmc_cur"]] + [pb[k] for k in dmc.DMC_UPD_KEYS]
-        nk, ck = pb["dmc_nxt"].clone(), pb["dmc_cnt"].clone()
-        npl, cpl = pb["dmc_nxt"].clone(), pb["dmc_cnt"].clone()
-        got = dmc.fused_apply_walk(nk, ck, *args, levels)
-        dmc._apply_plain(npl, cpl, *args[1:])
-        want = dmc._walk_plain(npl, cpl, args[0], levels)
-        err = _compare("dmc_fused", levels,
-                       [(nk, npl), (ck, cpl)] + list(zip(got, want)))
-        # re-applying the same set-writes is idempotent: time repeats
-        ms = _events_ms(lambda: dmc.fused_apply_walk(nk, ck, *args, levels),
-                        200)
-        plain_ms = _events_ms(lambda: (
-            dmc._apply_plain(npl, cpl, *args[1:]),
-            dmc._walk_plain(npl, cpl, args[0], levels)), 20)
-        # least traffic: descriptors + cur read, the visited pointer and
-        # count words read, the valid descriptor words written, the three
-        # outputs written (4 bytes each)
-        n_desc = sum(int(pb[k].numel()) for k in dmc.DMC_UPD_KEYS)
-        n_valid = sum(int((pb[k] >= 0).sum())
-                      for k in ("dmc_uX", "dmc_uS", "dmc_uU"))
-        walked = (2 ** (levels - 1) - 1) + 2 ** levels
-        outs = 2 ** levels * 2 + 2 ** (levels - 1)
-        nbytes = 4 * (B + n_desc + n_valid + B * (walked + outs))
-        out["dmc_fused"][levels] = dict(
-            err=err, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
-            bound_ms=_bound_ms(nbytes, B * (walked + outs)))
+    args = [pb["dmc_cur"]] + [pb[k] for k in dmc.DMC_UPD_KEYS]
+    tables = [(pb["dmc_nxt"].clone(), pb["dmc_cnt"].clone())
+              for _ in range(copies)]
+    return {"dmc_fused": [functools.partial(dmc.fused_apply_walk, n, c,
+                                            *args, levels)
+                          for n, c in tables],
+            "dmc_counts": [functools.partial(dmc.counts_walk, n, c,
+                                             args[0], levels)
+                           for n, c in tables]}
 
-        # the prediction-only walk reads the applied tables (npl, cpl)
-        cur = args[0]
-        got = dmc.counts_walk(npl, cpl, cur, levels)
-        err = _compare("dmc_counts", levels,
-                       [(got, dmc._counts_plain(npl, cpl, cur, levels))])
-        ms = _events_ms(lambda: dmc.counts_walk(npl, cpl, cur, levels), 200)
-        plain_ms = _events_ms(
-            lambda: dmc._counts_plain(npl, cpl, cur, levels), 20)
-        # least traffic: cur read, the visited pointer and count words
-        # read, the (B, 256) output written (4 bytes each)
-        nbytes = 4 * (B + B * (walked + 256))
-        out["dmc_counts"][levels] = dict(
-            err=err, ms=ms, plain_ms=plain_ms, nbytes=nbytes,
-            bound_ms=_bound_ms(nbytes, B * walked))
+
+def time_level(pb, levels):
+    """Both kernels at one depth: device ms with the tables cold (COLD
+    copies cycled, so each launch finds its rows out of the L2) and
+    warm (one copy), host µs per wrapper call, the plain versions' ms and
+    the byte bounds -> {name: res}."""
+    from cmix_tpu_torch.models import dmc
+    B, N = pb["dmc_nxt"].shape
+    cold = _launchers(pb, levels, COLD)
+    warm = {k: v[:1] for k, v in cold.items()}
+    out = {k: dict(cold=_device_ms(cold[k], REPS),
+                   warm=_device_ms(warm[k], REPS)) for k in cold}
+    args = [pb["dmc_cur"]] + [pb[k] for k in dmc.DMC_UPD_KEYS]
+    npl, cpl = pb["dmc_nxt"].clone(), pb["dmc_cnt"].clone()
+    out["dmc_fused"]["plain_ms"] = _events_ms(lambda: (
+        dmc._apply_plain(npl, cpl, *args[1:]),
+        dmc._walk_plain(npl, cpl, args[0], levels)), 20)
+    out["dmc_counts"]["plain_ms"] = _events_ms(
+        lambda: dmc._counts_plain(npl, cpl, args[0], levels), 20)
+    # least traffic (4 bytes a word): the visited pointer and count words
+    # read and cur; for dmc_fused also the descriptors read, the valid
+    # ones written and its three outputs; for dmc_counts its (B, 256) out
+    walked = (2 ** (levels - 1) - 1) + 2 ** levels
+    n_desc = sum(int(pb[k].numel()) for k in dmc.DMC_UPD_KEYS)
+    n_valid = sum(int((pb[k] >= 0).sum())
+                  for k in ("dmc_uX", "dmc_uS", "dmc_uU"))
+    outs = 2 ** levels * 2 + 2 ** (levels - 1)
+    for name, nbytes, ops in (
+            ("dmc_fused", 4 * (B + n_desc + n_valid + B * (walked + outs)),
+             B * (walked + outs)),
+            ("dmc_counts", 4 * (B + B * (walked + 256)), B * walked)):
+        r = out[name]
+        r.update(ms=r["cold"]["ms"], ms_warm=r["warm"]["ms"],
+                 host_us=r["cold"]["host_us"], nbytes=nbytes,
+                 bound_ms=_bound_ms(nbytes, ops))
+        print(f"{name} L={levels} B={B} N={N}: device {r['ms']:.5f} ms "
+              f"cold, {r['ms_warm']:.5f} ms warm; wrapper "
+              f"{r['host_us']:.2f} us "
+              f"host per call; plain {r['plain_ms']:.4f} ms; bound "
+              f"{r['bound_ms']:.6f} ms ({nbytes} B); sleep "
+              f"{r['cold']['sleep_ms']:.2f} ms covered the enqueue of "
+              f"{r['cold']['enqueue_ms']:.2f} ms")
+    return out
+
+
+def _slope(xs, ys):
+    mx, my = sum(xs) / len(xs), sum(ys) / len(ys)
+    return (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+            / sum((x - mx) ** 2 for x in xs))
+
+
+def check_dmc_kernels(device, B=256, N=16384, n_steps=50):
+    """Both DMC kernels at every depth L in 1..8: bit-exact against their
+    plain versions on the real-flow state and on every edge-case set, then
+    timed on the device -> {name: {levels: res}}."""
+    out = {"dmc_fused": {}, "dmc_counts": {}}
+    for levels in LEVELS:
+        pb = dmc_descriptors(B, N, levels, n_steps, device)
+        cases = {"real flow": pb, **dmc_edge_cases(pb, levels, seed=levels)}
+        errs = [kernels_vs_plain(s, levels, label)
+                for label, s in cases.items()]
+        res = time_level(pb, levels)
         for name in out:
-            r = out[name][levels]
-            print(f"{name} L={levels} B={B} N={N}: exact, kernel "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-                  f"{r['bound_ms']:.6f} ms ({r['nbytes']} B moved)")
+            res[name]["err"] = max(e[name] for e in errs)
+            out[name][levels] = res[name]
+        print(f"L={levels}: both kernels exact on {len(cases)} descriptor "
+              f"sets ({', '.join(cases)})")
+    for name, per in out.items():
+        slope = _slope(list(per), [r["ms"] for r in per.values()])
+        for levels, r in per.items():
+            r["floor_ms"] = (levels + 1) * slope
+        print(f"{name}: {slope * 1e3:.4f} us per level (cold, fit over "
+              f"L=1..8), intercept "
+              f"{(per[1]['ms'] - slope) * 1e3:.4f} us; chain floor at L=8 "
+              f"{per[8]['floor_ms']:.5f} ms")
+    return out
+
+
+def large_pools(device, B=256, levels=8, n_steps=50):
+    """Both DMC kernels at the larger pools of LARGE_POOLS, L=8: bit-exact
+    against their plain versions on the real-flow state and every edge
+    set (there the fused kernel compares with every descriptor instead
+    of using its tables), then timed as at N=16384 -> {N: {name: res}}."""
+    out = {}
+    for N in LARGE_POOLS:
+        pb = dmc_descriptors(B, N, levels, n_steps, device)
+        cases = {"real flow": pb, **dmc_edge_cases(pb, levels, seed=N)}
+        for label, st in cases.items():
+            kernels_vs_plain(st, levels, label)
+        out[N] = time_level(pb, levels)
+        print(f"N={N}: both kernels exact on {len(cases)} descriptor sets")
     return out
 
 
@@ -421,12 +656,19 @@ def main():
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    build_kernels()
-    res = check_dmc_kernels(device)
-    windows = main_path(device)
-    windows += portable_cross_device(device)
-    windows += portable_cli(device)
-    step_times(device)
+    def phase(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        print(f"phase {name}: {time.time() - t0:.1f} s")
+        return out
+
+    phase("build", build_kernels)
+    res = phase("kernels", check_dmc_kernels, device)
+    phase("large pools", large_pools, device)
+    windows = phase("main path", main_path, device)
+    windows += phase("portable fixture", portable_cross_device, device)
+    windows += phase("portable path", portable_cli, device)
+    phase("step times", step_times, device)
     replaces = {"dmc_fused": "cmix_tpu/models/dmc.py:153",
                 "dmc_counts": "cmix_tpu/models/dmc.py:287"}
     kernels = []
@@ -438,14 +680,18 @@ def main():
             "replaces": replaces[name],
             "launches": sum(w.counts[name] for w in windows),
             "max_abs_err": max(v["err"] for v in per_level.values()),
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "ms_warm": r["ms_warm"],
+            "host_us": r["host_us"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
+            "floor_ms": r["floor_ms"], "floor_by": "latency",
             "library_ms": None})
     summary = ", ".join(f"{k['name']} launches={k['launches']}"
                         for k in kernels)
-    print(f"kernels: {summary} over the coding paths; both exact at L=8 and "
-          f"L=7 (max_abs_err 0); dmc_counts is on no path of the system, as "
-          f"its TPU original; {time.time() - t_all:.1f} s in all")
+    print(f"kernels: {summary} over the coding paths; both exact at L=1..8 "
+          f"on the real-flow states and {len(EDGE_CASES)} edge-case sets "
+          f"(max_abs_err 0); times at L=8, B=256 (device, tables cold); "
+          f"dmc_counts is on no path of the system, as its TPU original; "
+          f"{time.time() - t_all:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
-``build/cmix_tpu_torch/lib<name>-<source hash>.so`` at the repository root,
-so an edited source is rebuilt and an unchanged one is reused.  Nothing is
+``build/cmix_tpu_torch/lib<name>-<source hash>.so`` at the repository root;
+the hash covers the ``.cu`` and every ``csrc/*.cuh`` it may include, so an
+edited source or header is rebuilt and an unchanged one is reused.  Nothing is
 compiled when a module is imported: the CPU tests import every module, and
 a machine without a GPU may have no ``nvcc``.
 """
@@ -33,10 +34,14 @@ def _nvcc():
 
 
 def lib_path(name):
-    """Where ``csrc/<name>.cu`` builds to (keyed by its content hash)."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """Where ``csrc/<name>.cu`` builds to (keyed by the content hash of the
+    source and of every header in ``csrc/``)."""
+    h = hashlib.sha256()
+    for src in [name + ".cu"] + sorted(
+            f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(src.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def compile_source(name, verbose=False):

@@ -14,6 +14,8 @@ by leaf.
 import numpy as np
 import torch
 
+from cmix_tpu_torch.engine import resolve_device
+
 # uint32 leaves kept at rest as int32 bits in the port
 _BITS32 = {"d12", "aux_tbl", "ppm", "sbank", "bank", "dmc_nxt", "dmc_cnt",
            "dmc_uXC", "dmc_uSW", "dmc_uUW"}
@@ -61,8 +63,11 @@ def _tree_to_torch(tree, device, keep32=False):
     return out
 
 
-def from_jax_state(sh, pb, cd, device="cpu"):
-    """JAX-package state (numpy pytrees) -> the port's (sh, pb, cd)."""
+def from_jax_state(sh, pb, cd, device="cuda"):
+    """JAX-package state (numpy pytrees) -> the port's (sh, pb, cd) on
+    ``device`` (the card by default, as every entry point: raises without
+    one; "cpu" when asked)."""
+    device = resolve_device(device)
     sh = dict(sh)
     chunks = sorted((k for k in sh if k.startswith("bank")
                      and k[4:].isdigit() or k == "bank"),

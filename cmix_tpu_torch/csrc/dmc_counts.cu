@@ -1,4 +1,4 @@
-// DMC prediction-only byte-tree walk, one CTA per block (Hopper).
+// DMC prediction-only byte-tree walk, one warp per block (Hopper).
 //
 // Replaces the TPU kernel cmix_tpu/models/dmc.py:_make_walk_kernel
 // (launched through _counts_pallas, pallas_call at dmc.py:348) and computes
@@ -7,54 +7,56 @@
 // two u16 child ids of a machine state -- and return the packed count words
 // of the 2^L visited states in byte-tree node order, zero-padded to 256
 // (out[j] = cnt[vis[j]] for j < 2^L, vis[0] = 0 and vis[1] = cur).  The
-// tables are only read: unlike dmc_fused.cu, this kernel writes nothing but
-// its output.
+// tables are only read.
 //
-// Design.  One CTA of 256 threads serves one block (the Pallas kernel's
-// one-block-per-grid-step shape; its VMEM staging and one-hot fetches
-// existed only because Mosaic has no dynamic lane addressing).  The walk
-// runs level by level through shared memory: at level l the 2^l threads
-// n in [2^l, 2^(l+1)) load nxt[vis[n]] and write vis[2n], vis[2n+1]; then
-// every thread j < 256 writes cnt[vis[j]] or 0.
+// Bound.  The bytes are nothing (~0.65 MB at B=256, L=8: 0.2 us at the
+// 3.35 TB/s data-sheet rate of an NVIDIA H100 80GB HBM3 at 700.00 W); the
+// time is a chain of dependent round trips: cur, then L-1 pointer levels,
+// then the last level's counts -- L+1 in all.
 //
-// Bound.  The kernel must read ~(2^(L-1) - 1 + 2^L + 1) x 4 B and write
-// 256 x 4 B per block (2.5 KB at L=8, 0.65 MB at B=256: ~0.2 us at
-// 3.35 TB/s).  Its real bound is latency: a chain of L dependent global
-// loads per block, 256 CTAs over 132 SMs.
+// Design.  The walk of dmc_walk.cuh, read-only: one warp (one CTA) per
+// block, no __syncthreads(), the tables read through the read-only data
+// path.  The zero tail of the output is stored first, by all lanes, off
+// the chain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dmc_walk.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kOut = 256;   // output words per block, zero past 2^L
 
-__global__ void __launch_bounds__(kThreads)
+struct ReadOnly {
+  const int32_t* nb;          // this block's rows of nxt and cnt
+  const int32_t* cb;
+
+  __device__ __forceinline__ int32_t load_ptr(int32_t s) const {
+    return __ldg(nb + s);
+  }
+  __device__ __forceinline__ int32_t load_cnt(int32_t s) const {
+    return __ldg(cb + s);
+  }
+  struct Fwd {};               // nothing is forwarded
+  __device__ __forceinline__ Fwd fwd_ptr(int32_t) const { return {}; }
+  __device__ __forceinline__ Fwd fwd_cnt(int32_t) const { return {}; }
+  __device__ __forceinline__ int32_t pick(Fwd, int32_t v) const { return v; }
+};
+
+__global__ void __launch_bounds__(dmc::kLanes)
 dmc_counts_kernel(const int32_t* __restrict__ nxt,
                   const int32_t* __restrict__ cnt,
                   const int32_t* __restrict__ cur, int32_t* __restrict__ out,
                   int n_nodes, int levels) {
+  __shared__ int32_t svis[dmc::kMaxNodes];
+  const int lane = threadIdx.x % dmc::kLanes;   // < 32: see dmc::walk
   const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const int32_t* nb = nxt + (size_t)b * n_nodes;
-  const int32_t* cb = cnt + (size_t)b * n_nodes;
-  __shared__ int32_t svis[kThreads];
-
-  if (t == 0) {
-    svis[0] = 0;
-    svis[1] = cur[b];
-  }
-  __syncthreads();
-  for (int l = 0; l + 1 < levels; ++l) {
-    if (t >= (1 << l) && t < (2 << l)) {
-      const int32_t w = nb[svis[t]];
-      svis[2 * t] = w & 0xFFFF;
-      svis[2 * t + 1] = (w >> 16) & 0xFFFF;
-    }
-    __syncthreads();
-  }
-  out[b * kOut + t] = t < (1 << levels) ? cb[svis[t]] : 0;
+  int32_t* ob = out + (size_t)b * kOut;
+  const int32_t c = __ldg(cur + b);
+  for (int j = (1 << levels) + lane; j < kOut; j += dmc::kLanes) ob[j] = 0;
+  const ReadOnly tb{nxt + (size_t)b * n_nodes, cnt + (size_t)b * n_nodes};
+  dmc::walk(tb, svis, lane, c, levels, ob, nullptr);
 }
 
 }  // namespace
@@ -62,7 +64,7 @@ dmc_counts_kernel(const int32_t* __restrict__ nxt,
 extern "C" int dmc_counts(const void* nxt, const void* cnt, const void* cur,
                           void* out, int batch, int n_nodes, int levels,
                           void* stream) {
-  dmc_counts_kernel<<<batch, kThreads, 0, (cudaStream_t)stream>>>(
+  dmc_counts_kernel<<<batch, dmc::kLanes, 0, (cudaStream_t)stream>>>(
       (const int32_t*)nxt, (const int32_t*)cnt, (const int32_t*)cur,
       (int32_t*)out, n_nodes, levels);
   return (int)cudaGetLastError();

@@ -9,7 +9,9 @@ profile (PORT=1 on the default gates) at the same widths, warms it up, then trac
 prints one JSON line: wall ms per step (host clock, synchronised), device
 busy ms per step (the sum of kernel and copy times on the one stream) and
 the idle share, kernel launches and operator calls per step, the top
-operators by host time and the top kernels by device time.  Needs a CUDA
+operators by host time and the top kernels by device time, and always
+the two DMC kernels' launches and device ms per step (``dmc_kernels``,
+zero where the step launched none).  Needs a CUDA
 device; the numbers are the card's, printed beside its name.
 """
 
@@ -23,6 +25,9 @@ import torch
 
 from cmix_tpu_torch import engine as E
 
+# the device functions of csrc/dmc_fused.cu and csrc/dmc_counts.cu, found
+# by name among the profiler's events
+DMC_KERNELS = ("dmc_fused_kernel", "dmc_counts_kernel")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -70,6 +75,11 @@ def profile_steps(batch=256, warm=4, steps=8, gates="bench"):
                       key=lambda e: -e.self_cpu_time_total)[:12]
     top_dev = sorted((e for e in avg if _dev_us(e) > 0),
                      key=lambda e: -_dev_us(e))[:12]
+    dmc_kernels = {name: {
+        "launches_per_step": sum(e.count for e in avg if name in e.key)
+        / steps,
+        "device_ms_per_step": sum(_dev_us(e) for e in avg if name in e.key)
+        / steps / 1e3} for name in DMC_KERNELS}
     wall_ms = wall / steps * 1e3
     busy_ms = busy_us / steps / 1e3
     return {
@@ -84,6 +94,7 @@ def profile_steps(batch=256, warm=4, steps=8, gates="bench"):
                          for e in top_host],
         "top_device_kernels": [[e.key[:80], e.count // steps,
                                 _dev_us(e) / steps / 1e3] for e in top_dev],
+        "dmc_kernels": dmc_kernels,
     }
 
 

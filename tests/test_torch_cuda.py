@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from cmix_tpu_torch import engine as E
 from cmix_tpu_torch import runner
 from cmix_tpu_torch.models import dmc
@@ -24,7 +25,7 @@ def gpu():
     return E.resolve_device("cuda")
 
 
-@pytest.mark.parametrize("levels", [8, 7, 1])
+@pytest.mark.parametrize("levels", range(1, 9))
 def test_dmc_kernel_matches_plain_version(gpu, levels):
     B, N = 16, 4096
     pb = dmc.init_dmc_perblock(N, B, gpu)
@@ -50,7 +51,7 @@ def test_dmc_kernel_matches_plain_version(gpu, levels):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("levels", [8, 7, 1])
+@pytest.mark.parametrize("levels", range(1, 9))
 def test_counts_kernel_matches_plain_version(gpu, levels):
     B, N = 16, 4096
     pb = dmc.init_dmc_perblock(N, B, gpu)
@@ -70,6 +71,28 @@ def test_counts_kernel_matches_plain_version(gpu, levels):
     assert not got[:, 1 << levels:].any()
 
 
+@pytest.mark.parametrize("levels", range(1, 9))
+def test_kernels_match_plain_versions_on_edge_cases(gpu, levels):
+    """Both kernels on chip_smoke's edge-case descriptor sets (forwarded
+    writes on the walked path, a clone and a path word on one node, ids 0
+    and N-1, twins 16384 apart, ...): bit-exact, tables included
+    (kernels_vs_plain raises)."""
+    pb = chip_smoke.dmc_descriptors(16, 32768, levels, 30, gpu)
+    for name, st in chip_smoke.dmc_edge_cases(pb, levels, levels).items():
+        errs = chip_smoke.kernels_vs_plain(st, levels, name)
+        assert errs == {"dmc_fused": 0, "dmc_counts": 0}
+
+
+def test_fused_kernel_at_the_largest_pool(gpu):
+    """N=65536, above the fused kernel's tabled pools (it compares with
+    every descriptor instead): ids up to N-1 and twins (the edge sets)."""
+    pb = chip_smoke.dmc_descriptors(4, 65536, 8, 30, gpu)
+    for name, st in {"real flow": pb,
+                     **chip_smoke.dmc_edge_cases(pb, 8, 65536)}.items():
+        assert chip_smoke.kernels_vs_plain(st, 8, name) == {
+            "dmc_fused": 0, "dmc_counts": 0}
+
+
 def test_kernel_wrapper_rejects_bad_operands(gpu):
     pb = dmc.init_dmc_perblock(4096, 2, gpu)
     args = [pb[k] for k in ("dmc_nxt", "dmc_cnt", "dmc_cur")
@@ -78,6 +101,13 @@ def test_kernel_wrapper_rejects_bad_operands(gpu):
         dmc.fused_apply_walk(*args[:2], args[2].long(), *args[3:], 8)
     with pytest.raises(ValueError):
         dmc.fused_apply_walk(*args, 9)
+    n0 = dmc.fused_apply_walk.launches, dmc.counts_walk.launches
+    empty = [a[:0] for a in args]       # a grid of 0 CTAs: the card refuses
+    with pytest.raises(RuntimeError):
+        dmc.fused_apply_walk(*empty, 8)
+    with pytest.raises(RuntimeError):
+        dmc.counts_walk(*empty[:3], 8)
+    assert (dmc.fused_apply_walk.launches, dmc.counts_walk.launches) == n0
 
 
 def test_roundtrip_on_gpu_goes_through_the_kernel(gpu):

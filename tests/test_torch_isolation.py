@@ -46,9 +46,10 @@ def test_no_jax_or_cmix_tpu_import_in_sources():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "cmix_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names
-                  if n.endswith((".py", ".cu"))]
+                  if n.endswith((".py", ".cu", ".cuh"))]
     assert len(files) > 15
-    for name in ("csrc/dmc_counts.cu", "mixer/ilstm.py", "utils/intmath.py"):
+    for name in ("csrc/dmc_counts.cu", "csrc/dmc_walk.cuh", "mixer/ilstm.py",
+                 "utils/intmath.py", "convert.py"):
         assert os.path.join(ROOT, "cmix_tpu_torch", name) in files
     hits = []
     for path in files:

@@ -64,7 +64,8 @@ def test_byte_update_matches_from_identical_state():
     for row in text[:12]:
         sh, pb = upd(sh, pb, jnp.asarray(row.astype(np.int32)))
     st, pt, _ = convert.from_jax_state({"lstm": jax.device_get(sh)},
-                                       {"lstm": jax.device_get(pb)}, {})
+                                       {"lstm": jax.device_get(pb)}, {},
+                                       device="cpu")
     byte = text[12].astype(np.int64)
     sh2, pb2 = upd(sh, pb, jnp.asarray(byte.astype(np.int32)))
     with torch.no_grad():

@@ -67,7 +67,7 @@ def test_port_byte_step_matches_jax_from_identical_state(which, jax_gates):
         sh, pb, cd, _ = step_j(sh, pb, cd, comp, jnp.asarray(data[:, t]), t,
                                mode)
     state = jax.device_get((sh, pb, cd))
-    sh_t, pb_t, cd_t = convert.from_jax_state(*state)
+    sh_t, pb_t, cd_t = convert.from_jax_state(*state, device="cpu")
     # the port's fresh state has the JAX package's keys and dtypes
     fresh = _flat(dict(zip("spc", convert.to_numpy(
         E.init_shared(cfg, g, CPU), E.init_perblock(cfg, g, B, CPU),

@@ -34,7 +34,8 @@ def jax_levels():
 
 
 def dmc_to_port(pb):
-    return convert.from_jax_state({}, jax.device_get(pb), {})[1]
+    return convert.from_jax_state({}, jax.device_get(pb), {},
+                                  device="cpu")[1]
 
 
 def u32_np(x):
