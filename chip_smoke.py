@@ -34,13 +34,24 @@ without one.  Phases, each of which raises on failure:
 6. the portable profile at the CLI widths on a text prefix: exact round
    trip, identical re-encode, launch counts > 0 both ways, and the archive
    byte-identical to the JAX package's CPU archive (by its sha256);
-7. ms per byte step: the bench speed profile at B=256 and bench widths,
+7. the content-routed path on ``testdata/routed.raw`` (x86 code, a 24-bit
+   BMP, a WAV and a baseline JPEG: the E8/E9, color and JPEG transforms,
+   the segment table and the routed gates X86X=2, GRID2=1, LMS=2, JPEGX=1):
+   the fast profile at CLI widths (exact round trip, identical re-encode,
+   launches > 0 both ways, the routed gates in the archive's gate record)
+   and at small widths against the CPU's archive (sizes within 1%); the
+   JAX package's PORT=1 archive ``testdata/routed.tcmx`` decoded and
+   re-encoded byte-identically on the card and on the CPU; and the
+   portable profile at CLI widths, its archive held to the JAX package's
+   sha256;
+8. ms per byte step: the bench speed profile at B=256 and bench widths,
    and the default and portable profiles at B=16 and B=256, CLI widths;
-8. a ``kernels:`` summary, the JSON kernel line, the card line, and last the
+9. a ``kernels:`` summary, the JSON kernel line, the card line, and last the
    contract line ``{"ok": true, "device": {...}}``.
 
-Each coding path (4-6) is driven with the kernels' launch counts set to 0
-just before it and read just after; the JSON line sums them.
+Each coding path (4-7) is driven with the kernels' launch counts set to 0
+just before it and read just after; the JSON line sums them (and gives the
+routed path's sum on its own).  Every phase prints its seconds.
 """
 
 import hashlib
@@ -55,10 +66,14 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_OPS_PER_S = 67e12           # H100 SXM, outside the tensor cores
 ROOT = os.path.dirname(os.path.abspath(__file__))
-# fast main path: 8 KiB of text in 512-byte blocks (one group of 16 lanes,
-# 512 byte steps per direction); the step count is the block size
-MAIN_KIB, MAIN_BLOCK = 8, 512
-SMALL_BLOCK = 256               # the CPU-vs-card size check, 1 KiB
+# The coding paths' time is their byte steps (as many as the block has
+# bytes; host-bound on the card, ~0.1-0.17 s a step on an H100 whatever the
+# lane count) and the CPU legs' payload bytes.  The blocks were cut from 512
+# and 256 to 128 bytes when the routed path joined, to keep the whole run
+# near its earlier time.
+# fast main path: 4 KiB of text in 128-byte blocks (one group of 32 lanes)
+MAIN_KIB, MAIN_BLOCK = 4, 128
+SMALL_BLOCK = 128               # the CPU-vs-card size check, 1 KiB
 BENCH_WARM, BENCH_STEPS = 8, 32
 # the DMC kernels: checked and timed at every walk depth; device times over
 # REPS launches, with COLD copies of the tables cycled (4 GiB at B=256,
@@ -68,7 +83,7 @@ BENCH_WARM, BENCH_STEPS = 8, 32
 LEVELS = range(1, 9)
 REPS, COLD = 200, 128
 LARGE_POOLS = (32768, 65536)
-STEP_WARM, STEP_STEPS = 4, 16
+STEP_WARM, STEP_STEPS = 4, 8
 # the portable fixture: the JAX package's PORT=1 archive of PORT_FIXTURE,
 # made on the CPU at these small widths in one coding group
 # (tests/test_torch_port_fixture.py regenerates it and holds it equal)
@@ -78,12 +93,27 @@ PORT_SMALL = dict(block_size=256, seg_size=256, tbits=12, mbits=12,
                   ibits=10, pbits=12, lstm_hidden=32, lstm_horizon=4,
                   dmc_nodes=4096)
 PORT_BATCH = 8
-# the portable profile at CLI widths: 4 KiB in 256-byte blocks; the sha256
+# the routed fixture (tests/torch_parity.py --write-routed-fixture): x86
+# code, a 24-bit BMP, a WAV and a baseline JPEG; the JAX package's PORT=1
+# archive of it at ROUTED_SMALL's widths in one group of ROUTED_BATCH
+# (tests/test_torch_routed_fixture.py regenerates the archive)
+ROUTED_FIXTURE = os.path.join(ROOT, "testdata", "routed.raw")
+ROUTED_ARCHIVE = os.path.join(ROOT, "testdata", "routed.tcmx")
+ROUTED_SMALL = dict(PORT_SMALL, block_size=128, seg_size=128)
+ROUTED_BATCH = 64
+# the routed fixture at CLI widths: the fast profile in 512-byte blocks;
+# the portable profile in 128-byte blocks, held to the sha256 of the JAX
+# package's PORT=1 archive on the CPU (tests/test_torch_routed_cli_width.py
+# recomputes it)
+ROUTED_BLOCK, ROUTED_PORT_BLOCK = 512, 128
+ROUTED_PORT_SHA256 = ("6ff52d6050f4c66dbb7380b909123bed"
+                      "86d991e6ce8161cda1b14df254833d36")
+# the portable profile at CLI widths: 4 KiB in 128-byte blocks; the sha256
 # of the JAX package's PORT=1 archive of it on the CPU
 # (tests/test_torch_port_cli_width.py recomputes it)
-PORT_KIB, PORT_BLOCK = 4, 256
-PORT_CLI_SHA256 = ("56d2fd5475af293c66b00d6a1bd74595"
-                   "34730f8e5cf755e5628a0ec7dbaad998")
+PORT_KIB, PORT_BLOCK = 4, 128
+PORT_CLI_SHA256 = ("dba946f7b1ca74cb7a76ece85a61d81f"
+                   "b478bbf5550ec23a16a2dc5a4a22e35f")
 # the runner CLI's widths (tbits 18, LSTM 256, horizon auto = 4 under 256
 # KiB, 16384 DMC nodes; mbits 20, ibits 16, pbits 20 and 2 LSTM layers are
 # the EngineConfig defaults)
@@ -471,10 +501,17 @@ def large_pools(device, B=256, levels=8, n_steps=50):
     return out
 
 
-def _round_trip(label, data, cfg, device, **kw):
-    """compress, decompress, compress again on ``device``: exact round trip,
-    identical re-encode, DMC kernel launches > 0 each way.  Returns the
-    launch windows and the archive."""
+def _gate_record(arc):
+    from cmix_tpu_torch import runner
+    off = 4 + runner._HDR_LEN
+    glen = int.from_bytes(arc[off:off + 2], "little")
+    return arc[off + 2:off + 2 + glen]
+
+
+def _round_trip(label, data, cfg, device, reencode=True, **kw):
+    """compress, decompress, and (``reencode``) compress again on
+    ``device``: exact round trip, identical re-encode, DMC kernel launches
+    > 0 each way.  Returns the launch windows and the archive."""
     import numpy as np
     from cmix_tpu_torch import runner
     with Launches() as enc:
@@ -491,21 +528,24 @@ def _round_trip(label, data, cfg, device, **kw):
     if e <= 0 or d <= 0:
         raise AssertionError(f"{label}: dmc_fused launches enc={e} dec={d}:"
                              " not on the path")
-    with Launches() as enc2:
-        again = runner.compress(data, cfg, device=device, **kw)
-    if again != arc:
-        raise AssertionError(f"{label}: two encodes differ")
+    windows, again = [enc, dec], ""
+    if reencode:
+        with Launches() as enc2:
+            if runner.compress(data, cfg, device=device, **kw) != arc:
+                raise AssertionError(f"{label}: two encodes differ")
+        windows.append(enc2)
+        again = (f" re-encode={enc2.counts['dmc_fused']} (identical to the "
+                 "first)")
     bpb = 8.0 * len(arc) / len(data)
     if not np.isfinite(bpb) or bpb >= 8.0:
         raise AssertionError(f"{label}: bpb {bpb} is not a compression")
     mb = len(data) / 1e6
-    print(f"{label}: exact round trip, identical re-encode, {len(arc)} B "
+    print(f"{label}: exact round trip, {len(arc)} B "
           f"archive, {bpb:.4f} bpb; encode {t_enc:.2f} s "
           f"({mb / t_enc:.6f} MB/s), decode {t_dec:.2f} s "
           f"({mb / t_dec:.6f} MB/s), combined {2 * mb / (t_enc + t_dec):.6f}"
-          f" MB/s; dmc_fused launches enc={e} dec={d} re-encode="
-          f"{enc2.counts['dmc_fused']}")
-    return [enc, dec, enc2], arc
+          f" MB/s; dmc_fused launches enc={e} dec={d}{again}")
+    return windows, arc
 
 
 def main_path(device):
@@ -539,20 +579,22 @@ def main_path(device):
     return windows + [w]
 
 
-def portable_cross_device(device):
+def portable_cross_device(device, fixture=PORT_FIXTURE, archive=PORT_ARCHIVE,
+                          small=PORT_SMALL, batch=PORT_BATCH, what="text"):
     """The JAX package's PORT=1 archive against the port on the card and
     on the CPU: decodes exactly, re-encodes byte-identically."""
     from cmix_tpu_torch import runner
     from cmix_tpu_torch.engine import EngineConfig
-    with open(PORT_FIXTURE, "rb") as f:
+    with open(fixture, "rb") as f:
         data = f.read()
-    with open(PORT_ARCHIVE, "rb") as f:
+    with open(archive, "rb") as f:
         ref = f.read()
-    cfg = EngineConfig(**PORT_SMALL)
-    kw = dict(max_batch=PORT_BATCH, gates={"PORT": 1})
-    print(f"portable fixture: {len(data)} B of text, the JAX package's "
-          f"PORT=1 archive {len(ref)} B ({cfg.block_size} B blocks, one "
-          f"group of {-(-len(data) // cfg.block_size)}, small widths)")
+    cfg = EngineConfig(**small)
+    kw = dict(max_batch=batch, gates={"PORT": 1})
+    print(f"portable fixture {os.path.basename(archive)}: {len(data)} B of "
+          f"{what}, the JAX package's PORT=1 archive {len(ref)} B "
+          f"({cfg.block_size} B blocks, one group, small widths, gate "
+          f"record {_gate_record(ref).decode()!r})")
     legs, windows = [], []
     for what, fn, dev in (
             ("card decodes the JAX archive", lambda: runner.decompress(
@@ -596,6 +638,75 @@ def portable_cli(device):
     print("portable path: the card's archive is byte-identical to the JAX "
           f"package's CPU archive (sha256 {digest[:16]}...)")
     return windows
+
+
+def routed_path(device):
+    """The content-routed path on the routed fixture: the fast profile at
+    CLI widths and at small widths against the CPU, the JAX package's
+    PORT=1 archive across devices, and the portable profile at CLI
+    widths -> the launch windows."""
+    from cmix_tpu_torch import runner
+    from cmix_tpu_torch.engine import EngineConfig
+    from cmix_tpu_torch.preprocess import wrt
+    with open(ROUTED_FIXTURE, "rb") as f:
+        data = f.read()
+    t0 = time.time()
+    payload, meta = wrt.transform(data)
+    t_tr = time.time() - t0
+    if wrt.untransform(payload, meta) != data:
+        raise AssertionError("routed fixture: untransform is not exact")
+    types = {e[0] for e in meta}
+    want = {wrt.SEG_EXE, wrt.SEG_IMG24, wrt.SEG_AUDIO, wrt.SEG_JPEGC}
+    if not want <= types:
+        raise AssertionError(f"routed fixture: segments {meta} lack "
+                             f"{sorted(want - types)}")
+    print(f"routed path: {len(data)} B of x86 code, BMP, WAV and JPEG -> "
+          f"{len(payload)} B payload in {t_tr * 1e3:.1f} ms (host), "
+          f"segments {meta}; fast profile, CLI "
+          f"widths, block size cut 65536 -> {ROUTED_BLOCK} "
+          f"({-(-len(payload) // ROUTED_BLOCK)} blocks in one group)")
+    windows, arc = _round_trip("routed path", data, _cli_cfg(ROUTED_BLOCK),
+                               device)
+    gates = _gate_record(arc)
+    if gates != b"X86X=2;LMS=2;GRID2=1;JPEGX=1" or not arc[5] & 1:
+        raise AssertionError(f"routed path: gate record {gates!r}, flags "
+                             f"{arc[5]}: not the routed gates and table")
+    print(f"routed path: gate record {gates.decode()!r}, segment table "
+          "written")
+
+    # the same model on the CPU and on the card at small widths
+    small = EngineConfig(**ROUTED_SMALL)
+    with Launches() as w:
+        a_gpu = runner.compress(data, small, max_batch=ROUTED_BATCH,
+                                device=device)
+        ok = runner.decompress(a_gpu, device=device) == data
+    windows.append(w)
+    a_cpu = runner.compress(data, small, max_batch=ROUTED_BATCH,
+                            device="cpu")
+    gap = (len(a_gpu) - len(a_cpu)) / len(a_cpu)
+    if not ok or abs(gap) > 0.01:
+        raise AssertionError(f"routed, small widths: gpu {len(a_gpu)} B vs "
+                             f"cpu {len(a_cpu)} B ({gap:+.4%}), round trip "
+                             f"{ok}")
+    print(f"routed, small widths ({small.block_size} B blocks): gpu archive "
+          f"{len(a_gpu)} B, cpu {len(a_cpu)} B ({gap:+.4%}), gpu round trip "
+          "exact")
+
+    windows += portable_cross_device(device, ROUTED_FIXTURE, ROUTED_ARCHIVE,
+                                     ROUTED_SMALL, ROUTED_BATCH,
+                                     "routed content")
+    print(f"routed portable path: CLI widths, PORT=1, block size cut 65536 "
+          f"-> {ROUTED_PORT_BLOCK}")
+    w2, arc = _round_trip("routed portable path", data,
+                          _cli_cfg(ROUTED_PORT_BLOCK), device, reencode=False,
+                          gates={"PORT": 1})
+    digest = hashlib.sha256(arc).hexdigest()
+    if digest != ROUTED_PORT_SHA256:
+        raise AssertionError(f"routed portable path: archive sha256 {digest}"
+                             f" is not the JAX package's {ROUTED_PORT_SHA256}")
+    print("routed portable path: the card's archive is byte-identical to the "
+          f"JAX package's CPU archive (sha256 {digest[:16]}...)")
+    return windows + w2
 
 
 def step_ms(device, label, env, cfg, B, warm, steps):
@@ -651,6 +762,9 @@ def main():
         return 2
     from cmix_tpu_torch.engine import resolve_device
     device = resolve_device("cuda")
+    # the CPU legs code a few lanes of tiny tensors, where threads only add
+    # overhead (the CPU tests run one thread too)
+    torch.set_num_threads(1)
     t_all = time.time()
     card = _card()
     print(f"card: {card}")
@@ -668,6 +782,8 @@ def main():
     windows = phase("main path", main_path, device)
     windows += phase("portable fixture", portable_cross_device, device)
     windows += phase("portable path", portable_cli, device)
+    routed = phase("routed path", routed_path, device)
+    windows += routed
     phase("step times", step_times, device)
     replaces = {"dmc_fused": "cmix_tpu/models/dmc.py:153",
                 "dmc_counts": "cmix_tpu/models/dmc.py:287"}
@@ -679,14 +795,15 @@ def main():
             "source": f"cmix_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": sum(w.counts[name] for w in windows),
+            "launches_routed": sum(w.counts[name] for w in routed),
             "max_abs_err": max(v["err"] for v in per_level.values()),
             "ms": r["ms"], "ms_warm": r["ms_warm"],
             "host_us": r["host_us"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes",
             "floor_ms": r["floor_ms"], "floor_by": "latency",
             "library_ms": None})
-    summary = ", ".join(f"{k['name']} launches={k['launches']}"
-                        for k in kernels)
+    summary = ", ".join(f"{k['name']} launches={k['launches']} (routed "
+                        f"path {k['launches_routed']})" for k in kernels)
     print(f"kernels: {summary} over the coding paths; both exact at L=1..8 "
           f"on the real-flow states and {len(EDGE_CASES)} edge-case sets "
           f"(max_abs_err 0); times at L=8, B=256 (device, tables cold); "

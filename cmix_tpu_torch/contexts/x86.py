@@ -3,7 +3,9 @@
 Port of cmix_tpu/contexts/x86.py: the same coarse decoder state machine
 (LUTs built procedurally from x86 encoding rules), advanced once per byte
 for every block.  The state is updated on every byte whatever the X86X gate
-says, because ``x86_ctx_vals`` feeds the bank and the mixer gates.
+says, because ``x86_ctx_vals`` feeds the bank and the mixer gates; the
+opcode-stream values ``x86_ext_vals`` (X86X >= 1) and ``x86_ext_vals2``
+(X86X = 2) read the same state.
 """
 
 import numpy as np
@@ -197,3 +199,25 @@ def x86_ctx_vals(st):
                      op & 0xF0, torch.full_like(op, 0x9D5F3A2B)], dim=1)
     gate = (st["phase"] * 16 + torch.clamp(st["rem"], max=15)) & 63
     return mix32(h & M32, x), gate
+
+
+def x86_ext_vals(st):
+    """Opcode-stream contexts (B, 2) u32: the (previous op, op, position)
+    bigram and the rolling opcode-history hash crossed with position."""
+    h = torch.stack([(st["pop"] * 0x600 + st["op"] * 2
+                      + torch.clamp(st["ipos"], max=1)) & M32,
+                     st["ophist"]], dim=1)
+    x = torch.stack([torch.full_like(h[:, 0], 0x7F4A7C15),
+                     (st["ipos"] + 0x61C88647) & M32], dim=1)
+    return mix32(h, x)
+
+
+def x86_ext_vals2(st):
+    """Deeper opcode contexts (B, 2) u32, X86X = 2: the opcode trigram and
+    (opcode, ModRM reg field, phase)."""
+    h = torch.stack([mix32(st["pop2"], (st["pop"] + 0x8F1B) & M32),
+                     (st["op"] * 64 + ((st["modrm"] >> 3) & 7) * 8
+                      + st["phase"]) & M32], dim=1)
+    x = torch.stack([(st["op"] * 4 + torch.clamp(st["ipos"], max=3)) & M32,
+                     torch.full_like(h[:, 0], 0xC2B2AE35)], dim=1)
+    return mix32(h, x)

@@ -6,7 +6,10 @@ tensors: uint32 tables become int32 tensors holding the same bits, small
 u32 leaves become int64 values, the bank chunks ``bank``/``bank2``/... are
 joined into one table, the DMC tables' TPU tile layout (B, N/1024, 8, 128)
 becomes flat (B, N).  The portable profile's integer tables and the
-integer LSTM's leaves stay int32, as the port computes them.
+integer LSTM's leaves stay int32, as the port computes them; float32 leaves
+(the fast profile's tables, the strided LMS's ``lms_conf``, ``lms_w`` and
+``lms_err``) pass as they are, and the per-block segment-table fields
+(``rec_forced``, ``blk_kind``, ``jpeg_rel0``, ``jpeg_clen``) become int64.
 ``to_numpy`` is the inverse, so tests can compare the two packages leaf
 by leaf.
 """

@@ -20,8 +20,12 @@ Two profiles, as in the JAX package (README "Determinism contract"):
   (``mixer/ilstm.py``).  Its archives are byte-identical to the JAX
   package's on any device.
 
-Every other gate value raises NotImplementedError naming the ROADMAP.md
-item that will port it.
+On each of these sets the runner switches on the content-routed gates
+(``runner.compress``): X86X=2 (4 opcode-stream bank contexts), GRID2=1 (2
+record-grid pixel contexts), JPEGX=1 (8 coefficient-plane contexts) and,
+outside PORT, LMS=2 (the strided linear predictor, one input, media blocks
+only).  Every other gate value raises NotImplementedError naming the
+ROADMAP.md item that will port it.
 
 Determinism on the card (encode and decode must compute the same bits):
 
@@ -48,7 +52,7 @@ import torch
 from cmix_tpu_torch.contexts.hashes import (
     init_ctx_state, update_ctx_state_batched, bracket_ctx, line_expected)
 from cmix_tpu_torch.contexts.x86 import (
-    init_x86_state, x86_update, x86_ctx_vals)
+    init_x86_state, x86_update, x86_ctx_vals, x86_ext_vals, x86_ext_vals2)
 from cmix_tpu_torch.mixer.ilstm import (
     ILstmConfig, init_ilstm_shared, init_ilstm_perblock,
     ilstm_shared_byte_update)
@@ -126,13 +130,11 @@ _GATE_SPEC = (
 BENCH_GATES = {"DMC_LEVELS": 7, "PPM_CK": 0, "PPM_DEEP": 0, "BANK_CH": 1,
                "CTX4": 0}
 # where each not-yet-ported gate value is queued (ROADMAP.md, queue 1)
-_LATER = {
-    "X86X": "item 11 (content-routed gates: X86X=2)",
-    "JPEGX": "item 11 (content-routed gates: JPEGX)",
-    "GRID2": "item 11 (content-routed gates: media/GRID2/LMS)",
-    "LMS": "item 11 (content-routed gates: media/GRID2/LMS)",
-    "WRTW": "item 12 (WRT and dictionary pretraining)",
-}
+_LATER = {"WRTW": "item 12 (WRT and dictionary pretraining)"}
+# the values runner.compress routes from the content, accepted on top of
+# every supported gate set (LMS stays a FormatError with PORT)
+_ROUTED = {"X86X": ("0", "2"), "GRID2": ("0", "1"), "JPEGX": ("0", "1"),
+           "LMS": ("0", "2")}
 # the portable profile's gates: PORT on top of the defaults, and the
 # integer LSTM's learning-rate scale and optimizer at any value
 _PORT_GATES = ("PORT", "ILSTM_LRX", "ILSTM_ADAM")
@@ -205,6 +207,23 @@ class Gates:
     def ctx4(self):
         return self._i("CTX4")
 
+    # ---- the content-routed gates
+    @cached_property
+    def x86x(self):
+        return self._i("X86X")
+
+    @cached_property
+    def grid2(self):
+        return self._i("GRID2")
+
+    @cached_property
+    def jpegx(self):
+        return self._i("JPEGX")
+
+    @cached_property
+    def lms(self):
+        return self._i("LMS")
+
     # ---- derived sizes (cf. cmix_tpu/engine.py _derive)
     @cached_property
     def n_ind(self):
@@ -212,8 +231,9 @@ class Gates:
 
     @cached_property
     def n_bank(self):
-        # 47 base + N_IND + 4 WIKI + 2 STEMX + 8 CTX2 + 8 CTX3 + 8 CTX4
-        return 47 + self.n_ind + 4 + 2 + 8 + 8 + 8 * self.ctx4
+        return (47 + self.n_ind + 4 * self._i("WIKI") + 2 * self.x86x
+                + 2 * self.grid2 + 8 * self.jpegx + 2 * self._i("STEMX")
+                + 8 * self._i("CTX2") + 8 * self._i("CTX3") + 8 * self.ctx4)
 
     @cached_property
     def match_orders(self):
@@ -250,9 +270,10 @@ class Gates:
 
     @cached_property
     def n_primary(self):
-        # bank + d0/d12 + match + lstm + ppm + sbank + dmc + match2 + runx
+        # bank + d0/d12 + match + lstm + ppm + sbank + dmc + lms + match2
+        # + runx
         return (self.n_bank + 4 + self.n_match + 1 + 1 + self.n_sbank + 1
-                + self.n_match + self.runx_n)
+                + (1 if self.lms else 0) + self.n_match + self.runx_n)
 
     @cached_property
     def n_inputs(self):
@@ -328,9 +349,12 @@ def make_gates(env=None) -> Gates:
                                    for n in _NOT_WITH_PORT):
         raise FormatError("PORT=1 requires VMATCH=0, LMS=0, MIX_TAU=0 "
                           "and MIX_BOOST=0 (float-internal paths)")
+    # the gate set under the routed gates: the defaults or the bench set
+    base = {n: _DEFAULTS[n] if v in _ROUTED.get(n, ()) else v
+            for n, v in vals.items()}
     off = [n for n, _, _ in _GATE_SPEC
-           if vals[n] != _DEFAULTS[n] and n not in _PORT_GATES]
-    if off and vals != _BENCH:
+           if base[n] != _DEFAULTS[n] and n not in _PORT_GATES]
+    if off and base != _BENCH:
         n = off[0]
         where = _LATER.get(n, _OFF_BY_DEFAULT)
         if n in BENCH_GATES:
@@ -374,6 +398,8 @@ POS_BITS = 24
 PPM_INC = 3
 CNT_CAP = 60
 MIX_LR = 4e-3
+LMS_K = 4
+LMS_MU = 0.002
 
 _NODE = np.arange(256)
 _LEVEL = np.zeros(256, dtype=np.int64)
@@ -677,6 +703,10 @@ class _Consts:
             [np.ones(n_pri), np.full(g.n_inputs - n_pri, 0.25)]),
             torch.float32)
         self.j33 = torch.arange(33, device=device)
+        self.ar16 = torch.arange(16, device=device)
+        self.lms_k = torch.arange(1, LMS_K + 1, device=device)
+        # JPEGX's coefficient magnitude buckets: |v - 128| >= each bound
+        self.magq_bounds = t([1, 2, 4, 8, 16, 32, 64])
         self.k8 = torch.arange(8, device=device)
         self.ar32 = torch.arange(32, device=device)
 
@@ -807,10 +837,11 @@ def _dyn3_gates(cs, pb, exp_byte, pdst, ptot):
 # ------------------------------------------------------------ per-byte ctxs
 
 
-def _bank_bases_b(g, C, cs, ind_val, rec_vals, x86_vals, dist_b1):
+def _bank_bases_b(g, C, cs, ind_val, rec_vals, x86_st, x86_vals, dist_b1):
     """(B, N_BANK) u32 context values of the model bank (same order and
-    hashes as cmix_tpu/engine.py _bank_bases_b at this slice's gates).
-    The mix32 calls are batched: one over all (h, x) pairs."""
+    hashes as cmix_tpu/engine.py _bank_bases_b at the ported gates; the
+    bank's salt is its column index, so the order is the format).  The
+    mix32 calls are batched: one over all (h, x) pairs."""
     oh = cs["ohash"]
     l4, l8 = cs["last4"], cs["last8"]
     b1 = l4 & 0xFF
@@ -881,6 +912,16 @@ def _bank_bases_b(g, C, cs, ind_val, rec_vals, x86_vals, dist_b1):
     mix(cs["listdepth"] | (cs["listchar"] << 4)
         | (torch.clamp(linepos, max=63) << 12), 0xD6E8FEB8)
     mix(w, cell + 0x2F)
+    # X86X: opcode-stream contexts; GRID2 and JPEGX: record-grid columns
+    # 4.. of _record_ctx_vals
+    if g.x86x:
+        xe = x86_ext_vals(x86_st)
+        if g.x86x >= 2:
+            xe = torch.cat([xe, x86_ext_vals2(x86_st)], dim=1)
+        for j in range(xe.shape[1]):
+            raw(xe[:, j])
+    for j in range(4, rec_vals.shape[1]):
+        raw(rec_vals[:, j])
     # STEMX
     mix(stem, 0x85EBCA77)
     mix(stem, (w + 0x1D) & M32)
@@ -926,20 +967,92 @@ def _bank_bases_b(g, C, cs, ind_val, rec_vals, x86_vals, dist_b1):
     return mix32(v, C.bank_salt[None, :]), brk, above_l, v_alive
 
 
-def _record_ctx_vals(cfg, pb, t):
-    """Record-grid context values (byte above, two-above, column)."""
+def _record_rl(pb):
+    """The record length: forced by a media segment, else the voted one
+    once two equal gaps confirmed it, else 1."""
     rl = torch.where(pb["rec_cnt"] >= 2, pb["rec_len"], 1)
-    rl = torch.where(pb["rec_forced"] > 0, pb["rec_forced"], rl)
+    return torch.where(pb["rec_forced"] > 0, pb["rec_forced"], rl)
+
+
+def _jpeg_coords(pb, t):
+    """(component, zigzag) address of byte t inside a recoded-JPEG
+    segment's coefficient planes -> (ck (B,): comp << 6 | k, or 4095 off the
+    planes; valid (B,); clc (B,) the component's plane length).  The JAX
+    package computes in int32; every value here fits int32, and the
+    division floors as its ``//`` does (negative offsets in the header)."""
+    body = pb["jpeg_rel0"] + t
+    cl = pb["jpeg_clen"]
+    csz = 64 * cl
+    c1 = csz[:, 0]
+    c2 = c1 + csz[:, 1]
+    c3 = c2 + csz[:, 2]
+    comp = (body >= c1).long() + (body >= c2).long() + (body >= c3).long()
+    base = torch.where(comp == 0, 0, torch.where(
+        comp == 1, c1, torch.where(comp == 2, c2, c3)))
+    clc = torch.gather(cl, 1, comp[:, None])[:, 0]
+    k = torch.div(body - base, torch.clamp(clc, min=1), rounding_mode="floor")
+    valid = ((body >= 0) & (clc > 0) & (k < 64)
+             & (pb["jpeg_rel0"] > -(1 << 29)))
+    return torch.where(valid, (comp << 6) | k, 4095), valid, clc
+
+
+def _record_ctx_vals(cfg, g, C, pb, t):
+    """Record-grid context values (B, 4 + 2*GRID2 + 8*JPEGX) u32: byte
+    above, two-above, column; GRID2's pixel neighbourhood (NW+N, N+NE+W);
+    JPEGX's coefficient-plane contexts.  Every history byte they read is
+    one gather at stacked offsets (mod the block, as the JAX package)."""
+    rl = _record_rl(pb)
     n = cfg.block_size
-    hist = pb["hist"]
-    above = torch.gather(hist, 1, torch.remainder(t - rl, n)[:, None]
-                         )[:, 0].long()
-    above2 = torch.gather(hist, 1, torch.remainder(t - 2 * rl, n)[:, None]
-                          )[:, 0].long()
-    posr = torch.remainder(torch.full_like(rl, t), torch.clamp(rl, min=1))
-    h = torch.stack([above, above | (above2 << 8), posr, above << 8], 1)
-    x = torch.stack([rl, torch.full_like(rl, 0x51ED2701), rl << 8, posr], 1)
-    return mix32(h, x & M32), rl, posr
+    tt = torch.full_like(rl, t)
+    posr = torch.remainder(tt, torch.clamp(rl, min=1))
+    offs = [tt - rl, tt - 2 * rl]
+    if g.grid2:
+        offs += [tt - rl - 1, tt - rl + 1, tt - 1]
+    if g.jpegx:
+        ck, valid, clc = _jpeg_coords(pb, t)
+        stride = torch.clamp(rl, min=1)
+        offs += [tt - 1, tt - 2] + [tt - j * clc for j in (1, 2, 3, 4)] \
+            + [tt - clc - stride, tt - stride + 1]
+    nb = torch.gather(pb["hist"], 1, torch.remainder(
+        torch.stack(offs, dim=1), n)).long()
+    above, above2 = nb[:, 0], nb[:, 1]
+    hs = [above, above | (above2 << 8), posr, above << 8]
+    xs = [rl, torch.full_like(rl, 0x51ED2701), rl << 8, posr]
+    if g.grid2:
+        nw, ne, lf = nb[:, 2], nb[:, 3], nb[:, 4]
+        hs += [nw | (above << 8), above | (ne << 8) | (lf << 16)]
+        xs += [torch.full_like(rl, 0x632BE5AB),
+               torch.full_like(rl, 0x9E3779B1)]
+    if g.jpegx:
+        j0 = 2 + 3 * g.grid2
+        lfj, lfj2 = nb[:, j0], nb[:, j0 + 1]
+        kq = ck & 63
+        # the block's previous zigzag coefficients (one plane back each),
+        # the north block's k-1 and the north-east same-k; a position off
+        # the planes reads the sentinel 0x1FF
+        vk = [(kq >= j) & valid for j in (1, 2, 3, 4)]
+        sent = torch.full_like(rl, 0x1FF)
+        pk1, pk2, pk3, pk4 = (torch.where(vk[j], nb[:, j0 + 2 + j], sent)
+                              for j in range(4))
+        nk1 = torch.where(vk[0], nb[:, j0 + 6], sent)
+        ne = torch.where(valid, nb[:, j0 + 7], sent)
+        mq = torch.bucketize(
+            (torch.stack([above, lfj, pk1 & 0xFF, pk2 & 0xFF, nk1, ne], 1)
+             - 128).abs(), C.magq_bounds, right=True)
+        m_above, m_lfj, m_pk1, m_pk2, m_nk1, m_ne = mq.unbind(1)
+        z4 = ((pk1 == 128).long() | ((pk2 == 128).long() << 1)
+              | (torch.where(vk[2], (pk3 == 128).long(), 2) << 2)
+              | (torch.where(vk[3], (pk4 == 128).long(), 2) << 4))
+        hs += [above | (lfj << 8), ck | (m_above << 12) | (m_lfj << 16), ck,
+               lfj | (lfj2 << 8), pk1 | (pk2 << 9),
+               m_pk1 | (m_pk2 << 4) | (m_above << 8), z4 | (m_pk1 << 6),
+               m_nk1 | (m_ne << 4) | (m_above << 8) | (m_lfj << 12)]
+        xs += [ck + 0x7F4A7C15, torch.full_like(rl, 0xE6546B64),
+               torch.full_like(rl, 0x2545F491), ck + 0x9E3779B9,
+               ck + 0xC2B2AE3D, ck + 0x27D4EB2F, ck + 0x165667B1,
+               ck + 0x85EBCA6B]
+    return (mix32(torch.stack(hs, 1), torch.stack(xs, 1) & M32), rl,
+            posr)
 
 
 # --------------------------------------------------------------- range coder
@@ -1055,14 +1168,14 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
     cs = pb["ctx"]
     node, level = C.node, C.level
     dev = node.device
-    rec_vals, rec_rl, rec_posr = _record_ctx_vals(cfg, pb, t)
+    rec_vals, rec_rl, rec_posr = _record_ctx_vals(cfg, g, C, pb, t)
     x86_vals, x86_gate = x86_ctx_vals(pb["x86"])
     dist_b1 = None
     if g.ctx4:
         b1i = cs["last4"] & 0xFF
         dist_b1 = torch.gather(pb["rec_stride"], 1, b1i[:, None])[:, 0]
     bases, brctx, above_l, v_alive = _bank_bases_b(
-        g, C, cs, pb["ind_val"], rec_vals, x86_vals, dist_b1)
+        g, C, cs, pb["ind_val"], rec_vals, pb["x86"], x86_vals, dist_b1)
     B = bases.shape[0]
 
     # ---- bank: 2-way set-associative rows probed by checksum (BANK_CK=2)
@@ -1178,6 +1291,32 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
         dmc_walk = None
         st_dmc = zero_ch
 
+    # ---- strided LMS: a linear prediction of the byte from the bytes 1..4
+    # records back votes its tree path (LMS=2: media blocks only)
+    lms, lm = None, []
+    if g.lms:
+        rl = rec_rl[:, None] * C.lms_k[None, :]
+        xs = torch.gather(hist, 1, torch.remainder(t - rl, cfg.block_size)
+                          ).float()
+        xs_f = (xs - 128.0) * (1.0 / 128.0)
+        predf = torch.clamp((pb["lms_w"] * xs_f).sum(dim=1), -1.0, 1.0)
+        pbyte = torch.clamp(torch.round(predf * 128.0 + 128.0), 0, 255
+                            ).long()
+        errb = torch.clamp(pb["lms_err"] * 32.0, 0, 15).long()
+        lconf = sh["lms_conf"][errb]
+        l_on = node[None, :] == (1 << lvl[0]) + (pbyte[:, None]
+                                                  >> (8 - lvl[0]))
+        l_bit = (pbyte[:, None] >> (7 - lvl[0])) & 1
+        st_lms = torch.where(l_on, torch.where(l_bit == 1, 1.0, -1.0)
+                             * _stretch_f(lconf)[:, None], 0.0)
+        med = None
+        if g.lms == 2:
+            med = (pb["blk_kind"] >= 3) & (pb["blk_kind"] <= 7)
+            st_lms = torch.where(med[:, None], st_lms, 0.0)
+        lm = [st_lms[:, None]]
+        lms = dict(xs=xs_f, pred=predf, pbyte=pbyte, errb=errb, conf=lconf,
+                   med=med)
+
     # ---- run channels (RUNX) from the bank rows' header slot
     rx_rows = hdr[:, :g.runx_n] & 0xFFFF
     rx_byte = (rx_rows >> 8) & 0xFF
@@ -1190,7 +1329,7 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
     st_runx = _vote(rx_alive, rx_bit, st_of(rx_conf))
 
     parts = [st_bank, st_d0[:, None, :], st_d12, st_match, st_lstm, st_ppm,
-             st_sbank, st_dmc, st_match2, st_runx]
+             st_sbank, st_dmc] + lm + [st_match2, st_runx]
     if g.bank_ch > 1 and port:
         cnti = rows & 0x3F
         conf12 = (cnti << 12) // (cnti + 2)                  # p12
@@ -1332,7 +1471,8 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
                dyn2_idx=dyn2_idx, longest=longest, apm_tl=tl, apm_frac=frac,
                st_in=st_in, p_tree=p_tree, p_tree12=p_tree12, rx_b=rx_b,
                rx_conf=rx_conf,
-               rx_alive=rx_alive, rx_bit=rx_bit, dmc_walk=dmc_walk)
+               rx_alive=rx_alive, rx_bit=rx_bit, dmc_walk=dmc_walk,
+               lms=lms)
     return p_tree, aux
 
 
@@ -1541,6 +1681,17 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte):
        aux["lenb2"])
     mc("runx_conf", aux["rx_bit"], aux["rx_alive"], aux["rx_conf"],
        aux["rx_b"])
+    lms = aux["lms"]
+    if lms is not None:
+        # the shared confidence per error bucket (STAT_NORM mean; at LMS=2
+        # only media blocks teach it)
+        lderr = ((lms["pbyte"] == byte).float() - lms["conf"]) * 0.02
+        if lms["med"] is not None:
+            lderr = lderr * lms["med"].float()
+        loh = (C.ar16[None, :] == lms["errb"][:, None]).float()
+        d_lm = (loh * lderr[:, None]).sum(dim=0) \
+            / torch.clamp(loh.sum(dim=0), min=1.0)
+        sh["lms_conf"] = torch.clamp(sh["lms_conf"] + d_lm, 1e-3, 1 - 1e-3)
     if port:
         return _update_mixers_int(g, C, sh, aux, target_i, onp_i, n8, t8_i)
 
@@ -1794,6 +1945,11 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device):
         byte = byte_acc & 255
 
         sh = _update_tree_b(cfg, g, C, sh, pb, aux, byte)
+        lms = aux["lms"]
+        if lms is not None:                  # the block's own taps
+            lerr = (byte.float() - 128.0) * (1.0 / 128.0) - lms["pred"]
+            pb["lms_w"] = pb["lms_w"] + LMS_MU * lerr[:, None] * lms["xs"]
+            pb["lms_err"] = 0.98 * pb["lms_err"] + 0.02 * lerr.abs()
         pb["hist"][:, t % cfg.block_size] = byte.to(torch.uint8)
         if g.ppm_deep:
             A = 0x01000193

@@ -1,7 +1,8 @@
-"""Image/audio container detection (the port uses it only to refuse media).
+"""Image/audio container detection + reversible pixel transforms.
 
-(Copy of the detection half of cmix_tpu/preprocess/media.py; the pixel
-transforms are not ported yet.)
+(Copy of cmix_tpu/preprocess/media.py, kept in the port so that it imports
+nothing of the JAX package; tests/test_torch_preprocess.py and
+tests/test_torch_transform.py hold the two equal.)
 
 Capability parity with the reference's media handling:
 
@@ -409,3 +410,53 @@ def find_media_spans(data: bytes):
                     if k != -1:
                         nxt.setdefault(k, []).append((magic, parser))
     return spans
+
+
+# --------------------------------------------------- 24bpp color transform
+
+
+def img24_encode(seg: bytes, stride: int = 0) -> bytes:
+    """Interleaved color decorrelation for 3-byte pixels:
+    (c0, c1, c2) -> (c1, c0-c1, c2-c1) mod 256.  For BMP's BGR order this
+    is (G, B-G, R-G) -- same family as the reference's encode_bmp
+    (src/preprocess/preprocessor.cpp:302-375).  ``stride`` > 0 restarts
+    triple alignment at every row boundary (BMP rows are padded to 4
+    bytes, so triples do not stay channel-aligned across rows); trailing
+    non-triple bytes of each row pass through.  Vectorized (numpy)."""
+    import numpy as np
+    a = np.frombuffer(seg, dtype=np.uint8).copy()
+    if stride <= 0:
+        stride = len(a)
+    rw = stride - stride % 3                  # transformable bytes per row
+    nrows = -(-len(a) // stride) if stride else 0
+    for r in range(nrows):
+        lo = r * stride
+        w = min(rw, max(0, len(a) - lo) - max(0, len(a) - lo) % 3)
+        if w <= 0:
+            continue
+        px = a[lo:lo + w].reshape(-1, 3).astype(np.int16)
+        g = px[:, 1]
+        a[lo:lo + w] = np.stack(
+            [g, (px[:, 0] - g) & 0xFF, (px[:, 2] - g) & 0xFF],
+            axis=1).astype(np.uint8).reshape(-1)
+    return a.tobytes()
+
+
+def img24_decode(seg: bytes, stride: int = 0) -> bytes:
+    import numpy as np
+    a = np.frombuffer(seg, dtype=np.uint8).copy()
+    if stride <= 0:
+        stride = len(a)
+    rw = stride - stride % 3
+    nrows = -(-len(a) // stride) if stride else 0
+    for r in range(nrows):
+        lo = r * stride
+        w = min(rw, max(0, len(a) - lo) - max(0, len(a) - lo) % 3)
+        if w <= 0:
+            continue
+        px = a[lo:lo + w].reshape(-1, 3).astype(np.int16)
+        g = px[:, 0]
+        a[lo:lo + w] = np.stack(
+            [(px[:, 1] + g) & 0xFF, g, (px[:, 2] + g) & 0xFF],
+            axis=1).astype(np.uint8).reshape(-1)
+    return a.tobytes()

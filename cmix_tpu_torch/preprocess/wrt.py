@@ -1,25 +1,31 @@
-"""Content detection and segment framing (no transforms yet).
+"""Content detection, the per-segment transforms and the segment table.
 
-Copy of the detection half of cmix_tpu/preprocess/wrt.py: the same chunk
-classifier and x86 score (the JAX package's pure-Python rules, vectorized
-with numpy; its native twin computes the same counts), the same segment
-types and the same merge of adjacent detection chunks.  The WRT dictionary
-transform, the EXE E8/E9 transform, the media/JPEG recoders and the
-archive's segment table are later slices (for text and raw input without
-a dictionary the JAX runner writes no segment table), so ``segments`` only
-reports what the content holds and the runner refuses every input whose
-segments would need one of them.
+Copy of cmix_tpu/preprocess/wrt.py without the WRT dictionary transform
+(ROADMAP.md queue 1, item 12): the same chunk classifier and x86 score (the
+JAX package's pure-Python rules, vectorized with numpy; its native twin
+computes the same counts), the same segment types, the same merge of
+adjacent detection chunks, and the transforms ``transform`` applies to
+them: the EXE E8/E9 absolutization (the Python twin ``_exe_py``, which is
+bit-identical to the JAX package's native library by design), the 24-bit
+color decorrelation (``media.img24_encode``) and the JPEG recoder
+(``jpeg.jpeg_recode``).  ``block_strides``, ``block_jpeg_coords`` and
+``block_kinds`` derive the engine's per-block fields from the segment
+table, so encode and decode agree.  Text is recorded as a raw segment (no
+dictionary), and the port always takes the JAX package's default routes
+(JPEG recoding on: it reads no ``CMIX_JPEGC``).
 """
 
 import numpy as np
 
 SEG_RAW, SEG_TEXT, SEG_EXE = 0, 1, 2
 SEG_IMG24, SEG_IMG8, SEG_AUDIO = 3, 4, 5
-SEG_JPEG = 6
+# JPEG spans the recoder cannot invert exactly pass through as SEG_JPEG;
+# recoded ones are SEG_JPEGC, whose table entry carries the plane geometry
+SEG_JPEG, SEG_JPEGC = 6, 7
+_MEDIA_SEGS = (SEG_IMG24, SEG_IMG8, SEG_AUDIO)
+# segments whose meta entry carries a 4th field (record stride hint)
+_STRIDE_SEGS = _MEDIA_SEGS + (SEG_JPEGC,)
 _DETECT_CHUNK = 1 << 16
-SEG_NAMES = {SEG_RAW: "raw", SEG_TEXT: "text", SEG_EXE: "exe",
-             SEG_IMG24: "img24", SEG_IMG8: "img8", SEG_AUDIO: "audio",
-             SEG_JPEG: "jpeg"}
 
 
 def detect_text_chunks(data: bytes, chunk: int = 4096):
@@ -91,3 +97,186 @@ def segments(data: bytes):
     if pos < n:
         _detect_region(pos, n)
     return segs
+
+
+# ------------------------------------------------------- EXE x86 transform
+
+
+def _sext25(v):
+    v &= 0x1FFFFFF
+    return v - 0x2000000 if v & 0x1000000 else v
+
+
+def _exe_cond(out, j, n):
+    if j + 4 >= n or out[j + 4] not in (0x00, 0xFF):
+        return False
+    return (out[j] in (0xE8, 0xE9)
+            or (j >= 1 and out[j - 1] == 0x0F and out[j] & 0xF0 == 0x80))
+
+
+def _exe_py(data: bytes, enc: bool) -> bytes:
+    """E8/E9 (and 0F 8x) rel32 <-> absolute, mod 2^25 sign-extended.  The
+    condition -- top operand byte in {0x00, 0xFF} -- is invariant under the
+    transform, so encode and decode agree on which operands were
+    transformed; backward encode + forward decode invert overlapping
+    matches LIFO."""
+    out = bytearray(data)
+    n = len(data)
+    rng = range(n - 5, -1, -1) if enc else range(0, max(n - 4, 0))
+    for j in rng:
+        if not _exe_cond(out, j, n):
+            continue
+        if enc:
+            rel = (out[j + 1] | out[j + 2] << 8 | out[j + 3] << 16
+                   | out[j + 4] << 24)
+            a = _sext25(rel + j + 5)
+            out[j + 1] = (a & 0xFF) ^ 0xB0
+            out[j + 2] = ((a >> 8) & 0xFF) ^ 0xB0
+            out[j + 3] = ((a >> 16) & 0xFF) ^ 0xB0
+            out[j + 4] = (a >> 24) & 0xFF
+        else:
+            a = ((out[j + 1] ^ 0xB0) | (out[j + 2] ^ 0xB0) << 8
+                 | (out[j + 3] ^ 0xB0) << 16 | out[j + 4] << 24)
+            rel = _sext25(a - j - 5)
+            out[j + 1] = rel & 0xFF
+            out[j + 2] = (rel >> 8) & 0xFF
+            out[j + 3] = (rel >> 16) & 0xFF
+            out[j + 4] = (rel >> 24) & 0xFF
+    return bytes(out)
+
+
+def exe_encode(data: bytes) -> bytes:
+    """E8/E9 rel32 -> absolute transform (inverse: ``exe_decode``)."""
+    return _exe_py(data, True)
+
+
+def exe_decode(data: bytes) -> bytes:
+    return _exe_py(data, False)
+
+
+# ------------------------------------------------- segmented preprocessing
+
+
+def transform(data: bytes):
+    """Detect content types and apply per-segment transforms ->
+    (payload, meta): meta entries are (type, enc_len, raw_len), media
+    entries add the record stride, recoded-JPEG entries also the body
+    offset and the per-component plane lengths."""
+    if not data:
+        return data, [(SEG_RAW, 0, 0)]
+    from cmix_tpu_torch.preprocess.jpeg import (
+        jpeg_recode, jpeg_stride, recoded_geometry)
+    from cmix_tpu_torch.preprocess.media import img24_encode
+    payload = bytearray()
+    meta = []
+    for typ, lo, hi, stride in segments(data):
+        raw = data[lo:hi]
+        if typ == SEG_EXE:
+            enc = exe_encode(raw)
+            payload += enc
+            meta.append((SEG_EXE, len(enc), len(raw)))
+        elif typ == SEG_IMG24:
+            payload += img24_encode(raw, stride)
+            meta.append((SEG_IMG24, len(raw), len(raw), stride))
+        elif typ in (SEG_IMG8, SEG_AUDIO):   # pass-through + stride hint
+            payload += raw
+            meta.append((typ, len(raw), len(raw), stride))
+        elif typ == SEG_JPEG:
+            enc = jpeg_recode(raw)           # None unless exact inverse
+            if enc is None:
+                payload += raw
+                meta.append((SEG_JPEG, len(raw), len(raw)))
+            else:
+                body_off, clens = recoded_geometry(enc) or (0, [])
+                payload += enc
+                meta.append((SEG_JPEGC, len(enc), len(raw),
+                             jpeg_stride(raw), body_off, tuple(clens[:4])))
+        else:                                # text without a dictionary
+            payload += raw
+            meta.append((SEG_RAW, len(raw), len(raw)))
+    return bytes(payload), meta
+
+
+def untransform(payload: bytes, meta) -> bytes:
+    from cmix_tpu_torch.preprocess.jpeg import jpeg_unrecode
+    from cmix_tpu_torch.preprocess.media import img24_decode
+    out = bytearray()
+    off = 0
+    for entry in meta:
+        typ, enc_len = entry[0], entry[1]
+        seg = payload[off:off + enc_len]
+        off += enc_len
+        if typ == SEG_TEXT:
+            raise NotImplementedError(
+                "WRT-coded text segments are not ported to cmix_tpu_torch "
+                "yet (ROADMAP.md queue 1, item 12)")
+        if typ == SEG_EXE:
+            out += exe_decode(seg)
+        elif typ == SEG_IMG24:
+            out += img24_decode(seg, entry[3])
+        elif typ == SEG_JPEGC:
+            out += jpeg_unrecode(seg)
+        else:
+            out += seg
+    return bytes(out)
+
+
+def _covered(meta, n_blocks, block_size):
+    """(entry, block, bytes of the block the entry covers), in table
+    order, for every entry with a nonzero length."""
+    off = 0
+    for entry in meta:
+        enc_len = entry[1]
+        if enc_len:
+            b0 = off // block_size
+            b1 = min((off + enc_len - 1) // block_size, n_blocks - 1)
+            for b in range(b0, b1 + 1):
+                lo = max(off, b * block_size)
+                hi = min(off + enc_len, (b + 1) * block_size)
+                yield entry, off, b, hi - lo
+        off += enc_len
+
+
+def block_strides(meta, n_blocks, block_size):
+    """Per-block forced record length from the media segments' strides:
+    a stride engages for a block where its segment covers more of the
+    block than any other strided segment and at least a quarter of it."""
+    cover = np.zeros(n_blocks, dtype=np.int64)
+    forced = np.zeros(n_blocks, dtype=np.int32)
+    for entry, _, b, c in _covered(meta, n_blocks, block_size):
+        if (entry[0] in _STRIDE_SEGS and len(entry) > 3
+                and 2 <= entry[3] < 4096 and c > cover[b]
+                and c * 4 >= block_size):
+            cover[b] = c
+            forced[b] = entry[3]
+    return forced
+
+
+def block_jpeg_coords(meta, n_blocks, block_size):
+    """Per-block JPEGX addressing: (rel0 (nb,) int32, clen (nb, 4) int32).
+    For a block whose dominant coverage is a recoded-JPEG segment, rel0 + t
+    is the byte's offset into that segment's coefficient planes (negative
+    while still in the verbatim header) and clen holds the per-component
+    plane lengths; rel0 = INT32_MIN marks blocks with no JPEG coverage."""
+    rel0 = np.full(n_blocks, np.iinfo(np.int32).min, dtype=np.int32)
+    clen = np.zeros((n_blocks, 4), dtype=np.int32)
+    cover = np.zeros(n_blocks, dtype=np.int64)
+    for entry, off, b, c in _covered(meta, n_blocks, block_size):
+        if (entry[0] == SEG_JPEGC and len(entry) > 5 and entry[5]
+                and c > cover[b] and c * 4 >= block_size):
+            cover[b] = c
+            rel0[b] = b * block_size - off - entry[4]
+            clen[b] = 0
+            for i, cl in enumerate(entry[5][:4]):
+                clen[b, i] = cl
+    return rel0, clen
+
+
+def block_kinds(meta, n_blocks, block_size):
+    """Per-block dominant content kind (the SEG_* id with the most
+    coverage; ties go to the lower id)."""
+    cover = np.zeros((n_blocks, 8), dtype=np.int64)
+    for entry, _, b, c in _covered(meta, n_blocks, block_size):
+        if 0 <= entry[0] < 8:
+            cover[b, entry[0]] += c
+    return np.argmax(cover, axis=1).astype(np.int32)

@@ -10,13 +10,16 @@ did while encoding.
 
 The port codes the fast profile at two gate sets (the defaults and the
 bench speed profile) and the portable integer profile (PORT=1 on top of
-the defaults, ``--portable``), on inputs whose content detection finds only
-text and raw segments.  A portable archive is byte-identical to the JAX
-package's and decodes on either package and any device.  Everything else
-raises NotImplementedError naming the ROADMAP.md item that will port it: a
-dictionary (WRT + pretraining), ``--resume``, EXE/media/JPEG content
-(content-routed gates and transforms), and archives that carry a segment
-table.
+the defaults, ``--portable``), on any content: ``compress`` runs the
+content transforms (``preprocess/wrt.transform``: E8/E9 on x86 code, the
+24-bit color decorrelation, JPEG recoding), routes the content gates on
+top of the caller's (X86X=2 for x86 code, GRID2=1 for strided media or a
+recoded JPEG, LMS=2 for media outside PORT, JPEGX=1 for a recoded JPEG:
+the JAX package's defaults) and writes the segment table; ``decompress``
+reads it and inverts the transforms.  A portable archive is byte-identical
+to the JAX package's and decodes on either package and any device.  A
+dictionary (WRT + pretraining) and ``--resume`` raise NotImplementedError
+naming the ROADMAP.md item that will port them.
 
     python -m cmix_tpu_torch.runner c|d|t INPUT OUTPUT [--portable]
         [--device cpu]
@@ -42,20 +45,17 @@ _FLAG_PRETRAIN = 2
 # | u8 ibits | u8 pbits | u8 log2(dmc_nodes) (0 = off) | u8 log2(seg_size)
 # | u8 lstm layers | u8 lstm horizon | u16 lstm_hidden | u16 exec_batch
 # | u64 orig_len | u64 payload_len | u32 n_blocks | 8s dict fingerprint
-# | 32s vocab bitmap, then u16 gates_len | gates
+# | 32s vocab bitmap, then u16 gates_len | gates; with flags bit 0 the
+# segment table follows: u32 count, then per segment <BII (type, enc_len,
+# raw_len), <BIII for media types 3-5 (+ record stride), or for a recoded
+# JPEG <BIIIIB (+ stride, body offset, plane count) and u32 plane lengths
 _HDR = "<BBBBBBBBBBBHHQQI8s32s"
 _HDR_LEN = struct.calcsize(_HDR)
 _NO_DICT = b"\0" * 8
 _LATER_DICT = "ROADMAP.md queue 1, item 12 (WRT and dictionary pretraining)"
 _LATER_RESUME = "ROADMAP.md queue 1, item 13 (--resume journal)"
-_LATER_CONTENT = {
-    wrt.SEG_EXE: "item 11 (content-routed gates: X86X=2 and the EXE "
-                 "transform)",
-    wrt.SEG_IMG24: "item 11 (content-routed gates: media/GRID2/LMS)",
-    wrt.SEG_IMG8: "item 11 (content-routed gates: media/GRID2/LMS)",
-    wrt.SEG_AUDIO: "item 11 (content-routed gates: media/GRID2/LMS)",
-    wrt.SEG_JPEG: "item 11 (content-routed gates: JPEGX)",
-}
+# dummy lanes' JPEGX offset: off every plane (as the JAX runner pads)
+_NO_JPEG = -(1 << 31) + 1
 
 
 def _vocab_bitmap(data: bytes) -> bytes:
@@ -98,21 +98,78 @@ def _split_blocks(data: bytes, n: int):
     return arr
 
 
-def _refuse_content(data: bytes):
-    """NotImplementedError for content whose segments need a transform or
-    a content-routed gate this slice does not port."""
-    for typ, lo, hi, _ in wrt.segments(data):
-        if typ in _LATER_CONTENT:
-            raise NotImplementedError(
-                f"{wrt.SEG_NAMES[typ]} content at bytes [{lo}, {hi}) is not "
-                f"ported to cmix_tpu_torch yet (ROADMAP.md queue 1, "
-                f"{_LATER_CONTENT[typ]})")
+def _routed_gates(seg_meta, port):
+    """The content-routed gate values (cmix_tpu/runner.py compress): on
+    exactly when the segment table holds the content they model.  JVAL
+    and WRTW stay off (no JVAL route by default, no dictionary)."""
+    types = {e[0] for e in seg_meta or ()}
+    return {"JPEGX": int(wrt.SEG_JPEGC in types),
+            "GRID2": int(bool(types & set(wrt._STRIDE_SEGS))),
+            "X86X": 2 * (wrt.SEG_EXE in types), "JVAL": 0, "WRTW": 0,
+            "LMS": 2 * (not port and any(3 <= e[0] <= 5 and e[1]
+                                         for e in seg_meta or ()))}
 
 
-def _group_state(cfg, g, b, vforce, device):
+def _block_fields(seg_meta, nb, n):
+    """Per-block engine fields from the segment table (None without one)."""
+    if seg_meta is None:
+        return None
+    return (wrt.block_strides(seg_meta, nb, n),
+            wrt.block_kinds(seg_meta, nb, n),
+            *wrt.block_jpeg_coords(seg_meta, nb, n))
+
+
+def _group_state(cfg, g, b, vforce, device, fields, lo, real):
+    """(sh, pb) of one coding group of ``b`` lanes; the ``real`` lanes from
+    block ``lo`` on take their segment-table fields, dummy lanes the JAX
+    runner's pads (no stride, raw kind, off every JPEG plane)."""
     sh = init_shared(cfg, g, device)
     sh["vocab_force"] = torch.as_tensor(vforce, device=device)
-    return sh, init_perblock(cfg, g, b, device)
+    pb = init_perblock(cfg, g, b, device)
+    if fields is not None:
+        for key, a, pad in zip(("rec_forced", "blk_kind", "jpeg_rel0",
+                                "jpeg_clen"), fields, (0, 0, _NO_JPEG, 0)):
+            v = np.full((b,) + a.shape[1:], pad, dtype=np.int64)
+            v[:real] = a[lo:lo + real]
+            pb[key] = torch.as_tensor(v, device=device)
+    return sh, pb
+
+
+def _seg_table(seg_meta):
+    parts = [struct.pack("<I", len(seg_meta))]
+    for e in seg_meta:
+        if e[0] == wrt.SEG_JPEGC:
+            parts.append(struct.pack("<BIIIIB", *e[:5], len(e[5])))
+            parts.extend(struct.pack("<I", c) for c in e[5])
+        elif len(e) > 3:
+            parts.append(struct.pack("<BIII", *e))
+        else:
+            parts.append(struct.pack("<BII", *e))
+    return b"".join(parts)
+
+
+def _read_seg_table(archive, off):
+    """-> (seg_meta, offset after the table); FormatError if truncated."""
+    def take(fmt):
+        nonlocal off
+        size = struct.calcsize(fmt)
+        if off + size > len(archive):
+            raise FormatError("truncated archive (segment table)")
+        off += size
+        return struct.unpack(fmt, archive[off - size:off])
+
+    (nseg,) = take("<I")
+    seg_meta = []
+    for _ in range(nseg):
+        t = archive[off] if off < len(archive) else None
+        if t == wrt.SEG_JPEGC:
+            e = take("<BIIIIB")
+            seg_meta.append(e[:5] + (take("<" + "I" * e[5]),))
+        elif t in wrt._STRIDE_SEGS:
+            seg_meta.append(take("<BIII"))
+        else:
+            seg_meta.append(take("<BII"))
+    return seg_meta, off
 
 
 def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
@@ -122,7 +179,8 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
 
     gates: mapping of gate name -> value (missing = default); the port
     accepts the defaults, ``engine.BENCH_GATES``, and PORT=1 (with any
-    ILSTM_LRX/ILSTM_ADAM) on top of the defaults."""
+    ILSTM_LRX/ILSTM_ADAM) on top of the defaults.  The content-routed
+    gates are then set from the content, whatever the caller gave."""
     if dictionary is not None:
         raise NotImplementedError(
             f"--dict is not ported to cmix_tpu_torch yet ({_LATER_DICT})")
@@ -134,17 +192,24 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
                           "of two (the archive header stores its log2)")
     g = make_gates(gates)
     dev = resolve_device(device)
-    _refuse_content(data)
-    # text without a dictionary is recorded as a raw segment, so the JAX
-    # package's transform leaves the payload as it is and writes no
-    # segment table: flags stay 0
+    payload, seg_meta = wrt.transform(data)
+    flags = 0
+    # text without a dictionary is recorded as a raw segment: an input of
+    # text and raw bytes only keeps its bytes and gets no segment table
+    if len(payload) >= len(data) and all(e[0] == wrt.SEG_RAW
+                                         for e in seg_meta):
+        payload, seg_meta = data, None
+    else:
+        flags |= _FLAG_WRT
+    g = make_gates(dict(g.env, **_routed_gates(seg_meta, g.port)))
     n = cfg.block_size
-    blocks = _split_blocks(data, n)
+    blocks = _split_blocks(payload, n)
     nb = blocks.shape[0]
     eb = min(max_batch, nb)
     trans = make_transcoder(cfg, g, dev)
-    vocab = _vocab_bitmap(data)
+    vocab = _vocab_bitmap(payload)
     vforce = _vocab_force(vocab)
+    fields = _block_fields(seg_meta, nb, n)
     streams = []
     for lo in range(0, nb, eb):
         batch = blocks[lo:lo + eb]
@@ -152,7 +217,7 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
         if b < eb:
             batch = np.concatenate(
                 [batch, np.zeros((eb - b, n), dtype=np.uint8)], axis=0)
-        sh, pb = _group_state(cfg, g, eb, vforce, dev)
+        sh, pb = _group_state(cfg, g, eb, vforce, dev, fields, lo, b)
         _, out, out_len = trans(sh, pb, batch,
                                 np.zeros((eb, cfg.comp_size), np.uint8),
                                 MODE_ENCODE)
@@ -160,20 +225,21 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
             L = int(out_len[i])
             if L >= n:                       # incompressible: store raw
                 streams.append((True, bytes(batch[i].tobytes())[
-                    :min(n, len(data) - (lo + i) * n)]))
+                    :min(n, len(payload) - (lo + i) * n)]))
             else:
                 streams.append((False, bytes(out[i, :L].tobytes())))
     blob = g.blob()
     header = MAGIC + struct.pack(
-        _HDR, FORMAT_VERSION, 0, cfg.block_size.bit_length() - 1,
+        _HDR, FORMAT_VERSION, flags, cfg.block_size.bit_length() - 1,
         cfg.tbits, cfg.mbits, cfg.ibits, cfg.pbits,
         cfg.dmc_nodes.bit_length() - 1 if cfg.dmc_nodes else 0,
         cfg.seg_size.bit_length() - 1, cfg.lstm_layers, cfg.lstm_horizon,
-        cfg.lstm_hidden, eb, len(data), len(data), nb, _NO_DICT, vocab) \
+        cfg.lstm_hidden, eb, len(data), len(payload), nb, _NO_DICT, vocab) \
         + struct.pack("<H", len(blob)) + blob
+    segtbl = _seg_table(seg_meta) if flags & _FLAG_WRT else b""
     lens = b"".join(struct.pack("<I", len(s) | (_RAW_FLAG if raw else 0))
                     for raw, s in streams)
-    return header + lens + b"".join(s for _, s in streams)
+    return header + segtbl + lens + b"".join(s for _, s in streams)
 
 
 def decompress(archive: bytes, dictionary: str = None,
@@ -201,11 +267,9 @@ def decompress(archive: bytes, dictionary: str = None,
         raise NotImplementedError(
             "dictionary-pretrained archives are not ported to "
             f"cmix_tpu_torch yet ({_LATER_DICT})")
+    seg_meta = None
     if flags & _FLAG_WRT:
-        raise NotImplementedError(
-            "archives with segmented preprocessing (WRT/EXE/media "
-            "transforms) are not ported to cmix_tpu_torch yet (ROADMAP.md "
-            "queue 1, items 11-12)")
+        seg_meta, off = _read_seg_table(archive, off)
     g = gates_from_blob(blob)
     dev = resolve_device(device)
     cfg = EngineConfig(block_size=1 << log_bs, tbits=tbits, mbits=mbits,
@@ -213,6 +277,8 @@ def decompress(archive: bytes, dictionary: str = None,
                        lstm_layers=lstm_layers, lstm_horizon=lstm_horizon,
                        dmc_nodes=(1 << dmc_log) if dmc_log else 0,
                        seg_size=1 << log_seg)
+    if off + 4 * nb > len(archive):
+        raise FormatError("truncated archive (block length table)")
     lens = struct.unpack("<" + "I" * nb, archive[off:off + 4 * nb])
     off += 4 * nb
     streams = []
@@ -227,6 +293,7 @@ def decompress(archive: bytes, dictionary: str = None,
     n = cfg.block_size
     trans = make_transcoder(cfg, g, dev)
     vforce = _vocab_force(vocab)
+    fields = _block_fields(seg_meta, nb, n)
     out_parts = [None] * nb
     for lo in range(0, nb, eb):
         group = streams[lo:lo + eb]
@@ -239,11 +306,14 @@ def decompress(archive: bytes, dictionary: str = None,
             else:
                 comp[j, :len(s)] = np.frombuffer(s, dtype=np.uint8)
                 modes[j] = MODE_DECODE
-        sh, pb = _group_state(cfg, g, eb, vforce, dev)
+        sh, pb = _group_state(cfg, g, eb, vforce, dev, fields, lo,
+                              len(group))
         hist, _, _ = trans(sh, pb, inp, comp, modes)
         for j, (raw, s) in enumerate(group):
             out_parts[lo + j] = s if raw else bytes(hist[j].tobytes())
     payload = b"".join(out_parts)[:payload_len]
+    if seg_meta is not None:
+        payload = wrt.untransform(payload, seg_meta)
     if len(payload) != orig_len:
         raise FormatError(
             f"decoded length {len(payload)} != {orig_len} (corrupt "

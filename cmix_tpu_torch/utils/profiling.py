@@ -1,11 +1,16 @@
 """Where a byte step's time goes on the GPU (torch.profiler).
 
     python -m cmix_tpu_torch.utils.profiling [--batch 256] [--steps 8]
-                                             [--gates bench|default|portable]
+        [--gates bench|bench-x86|default|routed|portable]
 
 Builds the byte step of the bench speed profile (bench widths, the blocks
-of ``testdata/bench4m.raw``), or of the default gates or the portable
-profile (PORT=1 on the default gates) at the same widths, warms it up, then traces ``--steps`` steps with CPU and CUDA activities and
+of ``testdata/bench4m.raw``), or of another gate set at the same widths:
+the bench set with X86X=2 (what the runner routes for bench4m.raw, whose
+detector finds x86 code), the default gates, the default gates with the
+media and JPEG routes (GRID2=1, LMS=2, JPEGX=1; every block marked as
+24-bit image, so the LMS votes), or the portable profile (PORT=1 on the
+default gates); warms it up, then traces ``--steps`` steps with CPU and
+CUDA activities and
 prints one JSON line: wall ms per step (host clock, synchronised), device
 busy ms per step (the sum of kernel and copy times on the one stream) and
 the idle share, kernel launches and operator calls per step, the top
@@ -28,6 +33,11 @@ from cmix_tpu_torch import engine as E
 # the device functions of csrc/dmc_fused.cu and csrc/dmc_counts.cu, found
 # by name among the profiler's events
 DMC_KERNELS = ("dmc_fused_kernel", "dmc_counts_kernel")
+GATE_SETS = {"bench": E.BENCH_GATES,
+             "bench-x86": dict(E.BENCH_GATES, X86X=2),
+             "default": {},
+             "routed": {"GRID2": 1, "LMS": 2, "JPEGX": 1},
+             "portable": {"PORT": 1}}
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -39,8 +49,7 @@ def _dev_us(evt):
 
 def profile_steps(batch=256, warm=4, steps=8, gates="bench"):
     dev = E.resolve_device("cuda")
-    g = E.make_gates({"bench": E.BENCH_GATES, "default": {},
-                      "portable": {"PORT": 1}}[gates])
+    g = E.make_gates(GATE_SETS[gates])
     cfg = E.EngineConfig(block_size=16384, tbits=18, mbits=18, ibits=16,
                          lstm_hidden=256, seg_size=2048, dmc_nodes=16384,
                          lstm_horizon=4)
@@ -50,6 +59,8 @@ def profile_steps(batch=256, warm=4, steps=8, gates="bench"):
     inp = torch.as_tensor(lanes[:, :warm + steps].T.copy(), device=dev)
     sh = E.init_shared(cfg, g, dev)
     pb = E.init_perblock(cfg, g, batch, dev)
+    if g.lms:
+        pb["blk_kind"].fill_(3)
     cd = E.init_coder(batch, dev)
     comp = torch.zeros((batch, cfg.comp_size), dtype=torch.uint8, device=dev)
     mode = torch.zeros(batch, dtype=torch.int64, device=dev)
@@ -103,8 +114,7 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--warm", type=int, default=4)
     ap.add_argument("--steps", type=int, default=8)
-    ap.add_argument("--gates", choices=["bench", "default", "portable"],
-                    default="bench")
+    ap.add_argument("--gates", choices=sorted(GATE_SETS), default="bench")
     args = ap.parse_args(argv)
     print(json.dumps(profile_steps(args.batch, args.warm, args.steps,
                                    args.gates)))

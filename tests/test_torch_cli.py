@@ -1,6 +1,7 @@
 """The port's entry points on the CPU: the CLI round trip, raw-stored blocks
-re-fed in a decode group, and every input, gate and option this slice
-refuses (NotImplementedError naming the ROADMAP.md item that ports it)."""
+re-fed in a decode group, content-routed input, and every gate and option
+the port still refuses (NotImplementedError naming the ROADMAP.md item that
+ports it, FormatError where the JAX package refuses too)."""
 
 import struct
 
@@ -9,8 +10,10 @@ import pytest
 import torch
 
 import torch_parity  # noqa: F401  (one torch thread per worker)
+from cmix_tpu.preprocess import wrt as jwrt
 from cmix_tpu_torch import engine as E
 from cmix_tpu_torch import runner
+from cmix_tpu_torch.preprocess import wrt
 
 SMALL = E.EngineConfig(block_size=64, seg_size=64, tbits=12, mbits=12,
                        ibits=10, pbits=12, lstm_hidden=32, lstm_horizon=4,
@@ -65,7 +68,7 @@ def test_empty_input_roundtrip():
 
 
 @pytest.mark.parametrize("gates", [
-    {"X86X": 2}, {"PORT": 1, "CTX4": 0}, {"LMS": 1}, {"MIX_AUX": 1},
+    {"X86X": 1}, {"PORT": 1, "CTX4": 0}, {"LMS": 1}, {"MIX_AUX": 1},
     {"WRTW": 1},
     {"DMC_LEVELS": 7},                   # a part of the bench set alone
     dict(E.BENCH_GATES, CTX4=1),
@@ -83,6 +86,16 @@ def test_unknown_gate_is_a_format_error():
         E.make_gates({"NO_SUCH_GATE": 1})
 
 
+def test_lms_with_port_is_a_format_error():
+    with pytest.raises(E.FormatError, match="PORT=1 requires"):
+        E.make_gates({"LMS": 2, "PORT": 1})
+    with pytest.raises(E.FormatError, match="PORT=1 requires"):
+        runner.compress(_text(64), SMALL, gates={"LMS": 2, "PORT": 1},
+                        device="cpu")
+
+
+# content the port refused until it ported the content-routed path (the
+# test keeps its name): now transformed as the JAX package transforms it
 @pytest.mark.parametrize("path", ["testdata/exe100k.raw",
                                   "testdata/media/signal16.wav",
                                   "testdata/media/photo8.bmp",
@@ -90,8 +103,21 @@ def test_unknown_gate_is_a_format_error():
 def test_unported_content_raises(path):
     with open(path, "rb") as f:
         data = f.read()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        runner.compress(data, SMALL, device="cpu")
+    payload, meta = wrt.transform(data)
+    assert (payload, meta) == jwrt.transform(data, None)
+    assert {e[0] for e in meta} - {wrt.SEG_RAW}
+    assert wrt.untransform(payload, meta) == data
+
+
+def test_routed_fixture_round_trips_at_tiny_widths():
+    with open("testdata/routed.raw", "rb") as f:
+        data = f.read()
+    arc = runner.compress(data, TINY, device="cpu")
+    assert arc[5] == runner._FLAG_WRT                 # a segment table
+    off = 4 + runner._HDR_LEN
+    glen = struct.unpack("<H", arc[off:off + 2])[0]
+    assert arc[off + 2:off + 2 + glen] == b"X86X=2;LMS=2;GRID2=1;JPEGX=1"
+    assert runner.decompress(arc, device="cpu") == data
 
 
 def test_dictionary_resume_and_segmented_archives_raise(tmp_path):
@@ -106,10 +132,12 @@ def test_dictionary_resume_and_segmented_archives_raise(tmp_path):
     with pytest.raises(NotImplementedError):
         runner.main(["c", str(src), str(tmp_path / "o"), "--device", "cpu",
                      "--dict", "english.dic"])
+    # flags bit 0 without the segment table it announces
     arc = bytearray(runner.compress(b"", TINY, device="cpu"))
-    arc[5] = 1                                # _FLAG_WRT: segment table
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        runner.decompress(bytes(arc), device="cpu")
+    arc[5] = runner._FLAG_WRT
+    hdr_end = 4 + runner._HDR_LEN + 2
+    with pytest.raises(E.FormatError, match="segment table"):
+        runner.decompress(bytes(arc[:hdr_end + 3]), device="cpu")
 
 
 def test_non_power_of_two_dmc_pool_is_refused():

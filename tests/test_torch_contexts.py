@@ -87,3 +87,29 @@ def test_byte_tables_match():
     packed = t[0] | (t[1] << 1) | (t[2] << 2) | (t[3] << 5) | (t[4] << 6) \
         | (t[5] << 9)
     assert np.array_equal(np.asarray(x86.X86_LUT).astype(np.int64), packed)
+
+
+def test_x86_ext_vals_match_jax_over_exe():
+    # the X86X contexts (opcode bigram and history hash; trigram and ModRM
+    # reg field) over four lanes of x86 code
+    exe = open("testdata/exe100k.raw", "rb").read()
+    n = 600
+    data = np.stack([np.frombuffer(exe[o:o + n], np.uint8)
+                     for o in (4096, 36864, 60000, 90000)])
+    x86_j, x86_t = _tile(jx.init_x86_state()), x86.init_x86_state(B, CPU)
+
+    @jax.jit
+    def step_j(s, b):
+        s = jx.x86_update(s, b)
+        return s, jx.x86_ext_vals(s), jx.x86_ext_vals2(s)
+
+    seen = set()
+    for t in range(n):
+        b = data[:, t]
+        x86_j, v1, v2 = step_j(x86_j, jnp.asarray(b.astype(np.uint32)))
+        x86_t = x86.x86_update(x86_t, torch.as_tensor(b.astype(np.int64)))
+        got1, got2 = x86.x86_ext_vals(x86_t), x86.x86_ext_vals2(x86_t)
+        assert np.array_equal(got1.numpy(), np.asarray(v1)), t
+        assert np.array_equal(got2.numpy(), np.asarray(v2)), t
+        seen.update(got2[:, 1].tolist())
+    assert len(seen) > 50                    # many distinct (op, reg, phase)

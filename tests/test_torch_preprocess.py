@@ -1,5 +1,6 @@
-"""The port's content detection (its own copy of the detection half of
-cmix_tpu/preprocess) vs the JAX package's, on every file in testdata/."""
+"""The port's content detection (its own copy of cmix_tpu/preprocess's) vs
+the JAX package's, on every file in testdata/ (the transforms themselves:
+tests/test_torch_transform.py)."""
 
 import glob
 
@@ -28,12 +29,13 @@ def test_detection_matches(path):
         assert np.array_equal(wrt.detect_text_chunks(chunk, len(chunk)),
                               jwrt.detect_text_chunks(chunk, len(chunk)))
         assert wrt.exe_score(chunk) == jwrt.exe_score(chunk)
-    # the segments the port refuses are exactly the JAX transform's
-    # non-raw, non-text segments (text without a dictionary stays raw)
+    # the detected segments that get a transform or a route are exactly
+    # the JAX transform's non-raw segments (text without a dictionary
+    # stays raw; a detected JPEG becomes SEG_JPEGC when it recodes)
     _, meta = jwrt.transform(data, None)
-    refused = {wrt.SEG_EXE, wrt.SEG_IMG24, wrt.SEG_IMG8, wrt.SEG_AUDIO,
-               wrt.SEG_JPEG}
-    port = [t for t, _, _, _ in wrt.segments(data) if t in refused]
+    routed = {wrt.SEG_EXE, wrt.SEG_IMG24, wrt.SEG_IMG8, wrt.SEG_AUDIO,
+              wrt.SEG_JPEG}
+    port = [t for t, _, _, _ in wrt.segments(data) if t in routed]
     ref = [e[0] for e in meta if e[0] != jwrt.SEG_RAW]
     assert len(port) == len(ref)
     if path.endswith(("exe100k.raw", ".bmp", ".wav", ".jpg")):

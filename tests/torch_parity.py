@@ -4,6 +4,7 @@ Not a test module: the test files import it (pytest puts tests/ on the path).
 """
 
 import contextlib
+import struct
 import sys
 
 import jax
@@ -71,6 +72,144 @@ def check_against_pallas(levels, jax_levels):
         assert np.array_equal(u32_np(g[:2]), u32_np(k))
 
 
+# ---- one byte step of the two engines from identical state
+
+STEP_KW = dict(block_size=512, seg_size=256, tbits=12, mbits=12, ibits=10,
+               pbits=12, lstm_hidden=32, dmc_nodes=5120, lstm_horizon=4)
+# packed slot words whose fields come from a float quantisation: the
+# stretch (st13) and probability (p12) fields may round one step apart
+# where the f32 inputs differ in the last place; counts/states are exact
+_SLOT_TABLES = ("bank", "d12")
+
+
+def _flat(tree, pre=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, pre + k + "."))
+        else:
+            out[pre + k] = np.asarray(v)
+    return out
+
+
+def _fields_close(name, a, b):
+    a, b = a.astype(np.int64), b.astype(np.int64)
+    leaf = name.split(".")[-1]
+    if leaf.startswith(_SLOT_TABLES):
+        fields = [(a >> 18, b >> 18, 1), ((a >> 6) & 0xFFF,
+                                          (b >> 6) & 0xFFF, 1),
+                  (a & 0x3F, b & 0x3F, 0)]
+    elif leaf == "sbank":
+        fields = [(a >> 8, b >> 8, 1), (a & 0xFF, b & 0xFF, 0)]
+    else:
+        fields = [(a, b, 0)]
+    for x, y, tol in fields:
+        assert np.abs(x - y).max(initial=0) <= tol, name
+
+
+@pytest.fixture
+def jax_gates():
+    """``cmix_tpu.engine.update_gates``, the process's gates restored after."""
+    from cmix_tpu import engine as je
+    prev = je.gates_blob()
+    yield je.update_gates
+    je.apply_gates(prev)
+
+
+def routed_lanes(kind, fields, warm):
+    """(4, 200) uint8 lanes and per-block fields for a routed byte step:
+    ``exe``: three exe100k.raw lanes and one of text; ``media``: BMP rows,
+    WAV samples, text, raw BMP header bytes; ``jpeg``: the routed fixture's
+    recoded JPEG (its coefficient planes and its header) and x86 code.
+    ``fields="jpeg"``: at step ``warm`` lane 0 is in the JPEG header, lane
+    1 in component 1's coefficient plane, lane 2 without JPEG, lane 3 a
+    dummy lane's pad."""
+    from cmix_tpu_torch.preprocess import wrt
+    n = 200
+    text = open("testdata/text100k.raw", "rb").read()
+    exe = open("testdata/exe100k.raw", "rb").read()
+    if kind == "exe":
+        rows = [exe[4096:], exe[36864:], text[5000:], exe[60000:]]
+    elif kind == "media":
+        bmp = open("testdata/media/photo24.bmp", "rb").read()
+        wav = open("testdata/media/signal16.wav", "rb").read()
+        rows = [bmp[54 + 3000:], wav[44 + 8000:], text[9000:], bmp]
+    else:
+        with open("testdata/routed.raw", "rb") as f:
+            payload, meta = wrt.transform(f.read())
+        jpg = sum(e[1] for e in meta[:-1])       # the last entry: JPEGC
+        rows = [payload[jpg:], payload[jpg + 700:], exe[36864:],
+                payload[jpg + 1000:]]
+    data = np.stack([np.frombuffer(r[:n], np.uint8) for r in rows])
+    if fields == "jpeg":
+        fields = {"jpeg_rel0": [-warm - 200, 600 - warm, -(1 << 31),
+                                -(1 << 31) + 1],
+                  "jpeg_clen": [[8, 2, 2, 0]] * 2 + [[0] * 4] * 2,
+                  "rec_forced": [8, 8, 0, 0], "blk_kind": [7, 7, 2, 0]}
+    return data, fields
+
+
+def step_parity(env, data, fields=None, warm=30):
+    """``warm`` byte steps of the JAX engine on ``data`` ((B, >warm) uint8
+    lanes), the state carried to the port (``convert``), then one step of
+    both: the coded bits exact; under PORT every leaf exact, else integer
+    leaves exact (packed slot fields within one rounding step), float
+    leaves within 2e-5 (the LSTM's cumulative distribution x 2^16: 0.05).
+    ``fields``: per-block leaves set before the warm-up ({name: array})."""
+    from cmix_tpu import engine as je
+    from cmix_tpu_torch import engine as E
+    cpu = torch.device("cpu")
+    g = E.make_gates(env)
+    assert g.blob() == je.gates_blob()
+    b = data.shape[0]
+    jcfg, cfg = je.EngineConfig(**STEP_KW), E.EngineConfig(**STEP_KW)
+    tile = lambda x: jnp.tile(x[None], (b,) + (1,) * x.ndim)   # noqa: E731
+    sh = je.init_shared(jcfg)
+    pb = jax.tree_util.tree_map(tile, je.init_perblock(jcfg))
+    for k, v in (fields or {}).items():
+        pb[k] = jnp.asarray(v, dtype=pb[k].dtype)
+    cd = jax.tree_util.tree_map(tile, je.init_coder(jcfg))
+    comp = jnp.zeros((b, jcfg.comp_size), jnp.uint8)
+    mode = jnp.zeros(b, jnp.int32)
+    step_j = jax.jit(je.make_byte_step(jcfg))
+    for t in range(warm):
+        sh, pb, cd, _ = step_j(sh, pb, cd, comp, jnp.asarray(data[:, t]), t,
+                               mode)
+    state = jax.device_get((sh, pb, cd))
+    sh_t, pb_t, cd_t = convert.from_jax_state(*state, device="cpu")
+    back = _flat(dict(zip("spc", convert.to_numpy(sh_t, pb_t, cd_t))))
+    ref0 = _flat(dict(zip("spc", state)))
+    assert set(back) == set(ref0)
+    for k in ref0:
+        assert np.array_equal(back[k].reshape(ref0[k].shape), ref0[k]), k
+
+    sh, pb, cd, ys = step_j(sh, pb, cd, comp, jnp.asarray(data[:, warm]),
+                            warm, mode)
+    step_t = E.make_byte_step(cfg, g, cpu)
+    with torch.no_grad():
+        sh_t, pb_t, cd_t, e32, c32 = step_t(
+            sh_t, pb_t, cd_t, torch.zeros((b, cfg.comp_size),
+                                          dtype=torch.uint8),
+            torch.as_tensor(data[:, warm].copy()), warm,
+            torch.zeros(b, dtype=torch.int64))
+    e32_j = np.stack([np.asarray(y) for y in ys[:8]], axis=1)
+    assert np.array_equal(e32.numpy(), e32_j.astype(np.int64))
+    assert np.array_equal(c32.numpy(), np.asarray(ys[8]).astype(np.int64))
+    ref = _flat(dict(zip("spc", jax.device_get((sh, pb, cd)))))
+    got = _flat(dict(zip("spc", convert.to_numpy(sh_t, pb_t, cd_t))))
+    assert set(got) == set(ref)
+    for k, r in ref.items():
+        x = got[k].reshape(r.shape)
+        if g.port:
+            assert np.array_equal(x, r), k
+        elif r.dtype.kind == "f":
+            tol = 0.05 if k.endswith("qcum") else 2e-5
+            np.testing.assert_allclose(x, r, atol=tol, rtol=0, err_msg=k)
+        else:
+            _fields_close(k, x, r)
+    return g
+
+
 # ---- the runner: archives of the two packages side by side
 
 RUNNER_KW = dict(block_size=64, seg_size=64, tbits=12, mbits=12, ibits=10,
@@ -86,7 +225,6 @@ def check_runner_against_jax(env):
     second group padded with a dummy lane) -> the same header, gate record
     and length-table flags, coded size within SIZE_TOL; the port's archive
     decodes exactly.  Returns the relative size gap."""
-    import struct
     from cmix_tpu import engine as je
     from cmix_tpu import runner as jr
     from cmix_tpu_torch import engine as te
@@ -162,7 +300,91 @@ def port_fixture():
     return data, arc
 
 
-if __name__ == "__main__" and sys.argv[1:] == ["--write-fixture"]:
+# ---- the routed fixture: x86 code, a 24-bit BMP, a WAV and a baseline JPEG
+
+
+def _bmp24(w, h, rng):
+    """A 24-bit BMP (as tests/test_media.py makes one)."""
+    rowbytes = (w * 3 + 3) & ~3
+    hdr = b"BM" + struct.pack("<IHHI", 54 + rowbytes * h, 0, 0, 54)
+    hdr += struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0,
+                       rowbytes * h, 2835, 2835, 0, 0)
+    y, x = np.mgrid[0:h, 0:w]
+    base = ((x * 3 + y * 2) % 250).astype(np.uint8)
+    px = np.zeros((h, rowbytes), dtype=np.uint8)
+    for c in range(3):
+        px[:, c:w * 3:3] = base + c + rng.integers(0, 3, (h, w),
+                                                   dtype=np.uint8)
+    return hdr + px.tobytes()
+
+
+def _wav(nframes):
+    """A 16-bit mono WAV (as tests/test_media.py makes one)."""
+    t = np.arange(nframes)
+    data = (3000 * np.sin(t / 9.0)).astype("<i2").tobytes()
+    fmt = struct.pack("<HHIIHH", 1, 1, 8000, 16000, 2, 16)
+    return (b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE"
+            + b"fmt " + struct.pack("<I", 16) + fmt
+            + b"data" + struct.pack("<I", len(data)) + data)
+
+
+def make_jpeg(w=64, h=48, mode="RGB", seed=0, **save_kw):
+    """A small baseline JPEG made by PIL (as tests/test_jpeg.py makes
+    one); skips the calling test without PIL."""
+    import io
+    image = pytest.importorskip("PIL.Image")
+    rng = np.random.default_rng(seed)
+    base = np.add.outer(np.arange(h) * 2, np.arange(w) * 3) % 256
+    if mode == "L":
+        arr = base.astype(np.uint8)
+    else:
+        arr = np.stack([base, np.roll(base, 5, 1), 255 - base],
+                       axis=-1).astype(np.uint8)
+    arr = np.clip(arr.astype(np.int32) + rng.integers(-8, 8, arr.shape), 0,
+                  255).astype(np.uint8)
+    buf = io.BytesIO()
+    image.fromarray(arr, mode).save(buf, "JPEG", **save_kw)
+    return buf.getvalue()
+
+
+def make_routed_input():
+    """The routed fixture's bytes, each part near the least the detector
+    takes (the CPU codes it at ~15 ms per byte): 768 B of exe100k.raw that
+    it calls x86 code, a 16x8 24-bit BMP, a WAV of 512 frames and a 32x16
+    baseline JPEG of three components (PIL at writing time, hence a
+    committed file)."""
+    with open("testdata/exe100k.raw", "rb") as f:
+        exe = f.read()[36864:36864 + 768]
+    return b"".join([exe, _bmp24(16, 8, np.random.default_rng(4)), _wav(512),
+                     make_jpeg(32, 16, quality=100)])
+
+
+def routed_fixture():
+    """(input bytes, the JAX package's PORT=1 archive of it) for the
+    committed routed fixture that chip_smoke.py decodes and re-encodes."""
+    import chip_smoke
+    from cmix_tpu import engine as je
+    with open(chip_smoke.ROUTED_FIXTURE, "rb") as f:
+        data = f.read()
+    with jax_runner_gates({"PORT": 1}) as jr:
+        arc = jr.compress(data, je.EngineConfig(**chip_smoke.ROUTED_SMALL),
+                          max_batch=chip_smoke.ROUTED_BATCH)
+    return data, arc
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["--write-routed-fixture"]:
+    # python tests/torch_parity.py --write-routed-fixture: (re)write the
+    # routed fixture's input (needs PIL) and the JAX package's archive of it
+    import chip_smoke
+    data = make_routed_input()
+    with open(chip_smoke.ROUTED_FIXTURE, "wb") as f:
+        f.write(data)
+    _, arc = routed_fixture()
+    with open(chip_smoke.ROUTED_ARCHIVE, "wb") as f:
+        f.write(arc)
+    print(f"{chip_smoke.ROUTED_FIXTURE}: {len(data)} bytes; "
+          f"{chip_smoke.ROUTED_ARCHIVE}: {len(arc)} bytes")
+elif __name__ == "__main__" and sys.argv[1:] == ["--write-fixture"]:
     # python tests/torch_parity.py --write-fixture: (re)write the portable
     # fixture's archive with the JAX package on the CPU
     import chip_smoke
