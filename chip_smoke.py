@@ -44,14 +44,24 @@ without one.  Phases, each of which raises on failure:
    re-encoded byte-identically on the card and on the CPU; and the
    portable profile at CLI widths, its archive held to the JAX package's
    sha256;
-8. ms per byte step: the bench speed profile at B=256 and bench widths,
+8. dictionary mode (``--dict``: the WRT text transform, WRTW=1 routed, the
+   shared state pretrained on the dictionary at B=1 and cached) with
+   ``testdata/mini.dic`` (english.dic's first 128 lines) on a text prefix,
+   in a fresh pretraining cache: the fast profile at CLI widths (the encode
+   pretrains, its replay's seconds, ms per step and launches printed; the
+   decode and a re-encode load the cache; exact round trip, identical
+   re-encode, flags 3 and WRTW=1 in the gate record), then the portable
+   profile at CLI widths with an empty cache, its archive held to the JAX
+   package's sha256 and decoded exactly;
+9. ms per byte step: the bench speed profile at B=256 and bench widths,
    and the default and portable profiles at B=16 and B=256, CLI widths;
-9. a ``kernels:`` summary, the JSON kernel line, the card line, and last the
-   contract line ``{"ok": true, "device": {...}}``.
+10. a ``kernels:`` summary, the JSON kernel line, the card line, and last
+    the contract line ``{"ok": true, "device": {...}}``.
 
-Each coding path (4-7) is driven with the kernels' launch counts set to 0
+Each coding path (4-8) is driven with the kernels' launch counts set to 0
 just before it and read just after; the JSON line sums them (and gives the
-routed path's sum on its own).  Every phase prints its seconds.
+routed path's, the dictionary path's and its pretraining's sums on their
+own).  Every phase prints its seconds.
 """
 
 import hashlib
@@ -68,8 +78,10 @@ F32_OPS_PER_S = 67e12           # H100 SXM, outside the tensor cores
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # The coding paths' time is their byte steps (as many as the block has
 # bytes; host-bound on the card, ~0.1-0.17 s a step on an H100 whatever the
-# lane count) and the CPU legs' payload bytes.  The blocks were cut from 512
-# and 256 to 128 bytes when the routed path joined, to keep the whole run
+# lane count), the dictionary's replay (one step per byte at B=1) and the
+# CPU legs' payload bytes.  The blocks were cut from 512 and 256 to 128
+# bytes when the routed path joined, and the routed path's fast profile
+# from 512 to 256 when the dictionary path joined, to keep the whole run
 # near its earlier time.
 # fast main path: 4 KiB of text in 128-byte blocks (one group of 32 lanes)
 MAIN_KIB, MAIN_BLOCK = 4, 128
@@ -101,11 +113,11 @@ ROUTED_FIXTURE = os.path.join(ROOT, "testdata", "routed.raw")
 ROUTED_ARCHIVE = os.path.join(ROOT, "testdata", "routed.tcmx")
 ROUTED_SMALL = dict(PORT_SMALL, block_size=128, seg_size=128)
 ROUTED_BATCH = 64
-# the routed fixture at CLI widths: the fast profile in 512-byte blocks;
+# the routed fixture at CLI widths: the fast profile in 256-byte blocks;
 # the portable profile in 128-byte blocks, held to the sha256 of the JAX
 # package's PORT=1 archive on the CPU (tests/test_torch_routed_cli_width.py
 # recomputes it)
-ROUTED_BLOCK, ROUTED_PORT_BLOCK = 512, 128
+ROUTED_BLOCK, ROUTED_PORT_BLOCK = 256, 128
 ROUTED_PORT_SHA256 = ("6ff52d6050f4c66dbb7380b909123bed"
                       "86d991e6ce8161cda1b14df254833d36")
 # the portable profile at CLI widths: 4 KiB in 128-byte blocks; the sha256
@@ -114,6 +126,15 @@ ROUTED_PORT_SHA256 = ("6ff52d6050f4c66dbb7380b909123bed"
 PORT_KIB, PORT_BLOCK = 4, 128
 PORT_CLI_SHA256 = ("dba946f7b1ca74cb7a76ece85a61d81f"
                    "b478bbf5550ec23a16a2dc5a4a22e35f")
+# the dictionary path: english.dic's first 128 lines (600 B; replayed with
+# LF -> space, padded to 640 steps at 128-byte blocks) on 2 KiB of text
+# (1744 B of WRT payload, 14 blocks in one group) at CLI widths; the sha256
+# of the JAX package's PORT=1 archive of it on the CPU
+# (tests/test_torch_dict_cli_width.py recomputes it)
+DICT_FILE = os.path.join(ROOT, "testdata", "mini.dic")
+DICT_KIB, DICT_BLOCK = 2, 128
+DICT_PORT_SHA256 = ("aff0d39ba4c1426e61ea2715cc91176c"
+                    "83863427c7ebcc77749542b08d2d0027")
 # the runner CLI's widths (tbits 18, LSTM 256, horizon auto = 4 under 256
 # KiB, 16384 DMC nodes; mbits 20, ibits 16, pbits 20 and 2 LSTM layers are
 # the EngineConfig defaults)
@@ -520,7 +541,8 @@ def _round_trip(label, data, cfg, device, reencode=True, **kw):
         t_enc = time.time() - t0
     with Launches() as dec:
         t0 = time.time()
-        back = runner.decompress(arc, device=device)
+        back = runner.decompress(arc, device=device,
+                                 dictionary=kw.get("dictionary"))
         t_dec = time.time() - t0
     if back != data:
         raise AssertionError(f"{label}: round trip is not exact")
@@ -709,6 +731,120 @@ def routed_path(device):
     return windows + w2
 
 
+class Replays:
+    """Each dictionary replay (``engine.make_pretrainer``) in a window:
+    its seconds (synchronized), bytes and dmc_fused launches."""
+
+    def __enter__(self):
+        import torch
+        from cmix_tpu_torch import engine
+        from cmix_tpu_torch.models import dmc
+        self.engine, self.orig, self.runs = engine, engine.make_pretrainer, []
+
+        def make(cfg, g, dev):
+            replay = self.orig(cfg, g, dev)
+
+            def timed(sh, data):
+                torch.cuda.synchronize()
+                n0, t0 = dmc.fused_apply_walk.launches, time.time()
+                out = replay(sh, data)
+                torch.cuda.synchronize()
+                self.runs.append(dict(
+                    seconds=time.time() - t0, bytes=len(data),
+                    launches=dmc.fused_apply_walk.launches - n0))
+                return out
+            return timed
+        engine.make_pretrainer = make
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.make_pretrainer = self.orig
+
+
+def _dict_leg(label, data, cfg, device, expect_replay, **kw):
+    """``_round_trip`` with the dictionary, its replays recorded: one replay
+    of at least 640 steps in the encode when ``expect_replay``, none else
+    (the cache).  -> (windows, archive, replay launches)."""
+    with Replays() as rep:
+        windows, arc = _round_trip(label, data, cfg, device,
+                                   dictionary=DICT_FILE, **kw)
+    runs = rep.runs
+    if len(runs) != int(expect_replay) or (runs and runs[0]["launches"] < 640):
+        raise AssertionError(f"{label}: replays {runs}, expected "
+                             f"{int(expect_replay)} of >= 640 launches")
+    gates = _gate_record(arc)
+    if arc[5] != 3 or b"WRTW=1" not in gates.split(b";"):
+        raise AssertionError(f"{label}: flags {arc[5]}, gate record "
+                             f"{gates!r}: not a WRT-coded pretrained archive")
+    for r in runs:
+        print(f"{label}: pretraining replayed {r['bytes']} B in "
+              f"{r['seconds']:.2f} s, {r['launches']} steps (dmc_fused "
+              f"launches), {r['seconds'] / r['launches'] * 1e3:.2f} ms per "
+              "step at B=1")
+    coded = windows[0].counts["dmc_fused"] - sum(r["launches"] for r in runs)
+    if coded <= 0:
+        raise AssertionError(f"{label}: no dmc_fused launch while coding")
+    print(f"{label}: flags 3, gate record {gates.decode()!r}; dmc_fused "
+          f"launches in the encode's coding {coded}")
+    return windows, arc, sum(r["launches"] for r in runs)
+
+
+def dict_path(device):
+    """Dictionary mode at CLI widths, the fast profile then the portable
+    one, each in a fresh pretraining cache -> (launch windows, launches
+    of the replays)."""
+    import tempfile
+    from cmix_tpu_torch.preprocess import wrt
+    from cmix_tpu_torch.utils import checkpoint
+    data = _text(DICT_KIB)
+    t0 = time.time()
+    payload, meta = wrt.transform(data, wrt.Dictionary(DICT_FILE))
+    t_wrt = time.time() - t0
+    if meta[0][0] != wrt.SEG_TEXT or len(payload) >= len(data):
+        raise AssertionError(f"dictionary path: WRT did not code the text "
+                             f"({meta})")
+    print(f"dictionary path: {len(data)} B of text100k.raw -> {len(payload)} "
+          f"B of WRT payload with {os.path.basename(DICT_FILE)} in "
+          f"{t_wrt * 1e3:.1f} ms (host); CLI widths, block size cut 65536 -> "
+          f"{DICT_BLOCK} ({-(-len(payload) // DICT_BLOCK)} blocks in one "
+          "group)")
+    # the WRT twin (a Python loop) on all of text100k.raw with the shipped
+    # list, what --dict auto codes
+    from cmix_tpu_torch.runner import AUTO_DICT
+    full, d = _text(100), wrt.Dictionary(AUTO_DICT)
+    t0 = time.time()
+    enc = d.encode(full)
+    t1 = time.time()
+    if d.decode(enc) != full:
+        raise AssertionError("WRT with english.dic: decode is not exact")
+    print(f"dictionary path: WRT of text100k.raw with english.dic, {len(full)}"
+          f" B -> {len(enc)} B: encode {(t1 - t0) * 1e3:.1f} ms, decode "
+          f"{(time.time() - t1) * 1e3:.1f} ms (host)")
+    cfg = _cli_cfg(DICT_BLOCK)
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    old_dir = checkpoint.CACHE_DIR
+    try:
+        with tempfile.TemporaryDirectory(dir=build) as cache:
+            checkpoint.CACHE_DIR = os.path.join(cache, "fast")
+            windows, _, replayed = _dict_leg(
+                "dictionary path, fast profile", data, cfg, device, True)
+            checkpoint.CACHE_DIR = os.path.join(cache, "portable")
+            w2, arc, r2 = _dict_leg(
+                "dictionary path, portable profile", data, cfg, device, True,
+                reencode=False, gates={"PORT": 1})
+    finally:
+        checkpoint.CACHE_DIR = old_dir
+    digest = hashlib.sha256(arc).hexdigest()
+    if digest != DICT_PORT_SHA256:
+        raise AssertionError(f"dictionary path: portable archive sha256 "
+                             f"{digest} is not the JAX package's "
+                             f"{DICT_PORT_SHA256}")
+    print("dictionary path: the card's portable archive is byte-identical to "
+          f"the JAX package's CPU archive (sha256 {digest[:16]}...)")
+    return windows + w2, replayed + r2
+
+
 def step_ms(device, label, env, cfg, B, warm, steps):
     """Host-clock ms per byte step (synchronized) over ``steps`` steps on
     bench4m.raw lanes after ``warm`` warm-up steps."""
@@ -784,6 +920,8 @@ def main():
     windows += phase("portable path", portable_cli, device)
     routed = phase("routed path", routed_path, device)
     windows += routed
+    dicts, replayed = phase("dict path", dict_path, device)
+    windows += dicts
     phase("step times", step_times, device)
     replaces = {"dmc_fused": "cmix_tpu/models/dmc.py:153",
                 "dmc_counts": "cmix_tpu/models/dmc.py:287"}
@@ -796,6 +934,8 @@ def main():
             "replaces": replaces[name],
             "launches": sum(w.counts[name] for w in windows),
             "launches_routed": sum(w.counts[name] for w in routed),
+            "launches_dict": sum(w.counts[name] for w in dicts),
+            "launches_pretrain": replayed if name == "dmc_fused" else 0,
             "max_abs_err": max(v["err"] for v in per_level.values()),
             "ms": r["ms"], "ms_warm": r["ms_warm"],
             "host_us": r["host_us"], "plain_ms": r["plain_ms"],
@@ -803,7 +943,9 @@ def main():
             "floor_ms": r["floor_ms"], "floor_by": "latency",
             "library_ms": None})
     summary = ", ".join(f"{k['name']} launches={k['launches']} (routed "
-                        f"path {k['launches_routed']})" for k in kernels)
+                        f"path {k['launches_routed']}, dictionary path "
+                        f"{k['launches_dict']}, of them pretraining "
+                        f"{k['launches_pretrain']})" for k in kernels)
     print(f"kernels: {summary} over the coding paths; both exact at L=1..8 "
           f"on the real-flow states and {len(EDGE_CASES)} edge-case sets "
           f"(max_abs_err 0); times at L=8, B=256 (device, tables cold); "

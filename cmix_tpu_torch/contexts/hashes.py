@@ -2,16 +2,57 @@
 
 Port of cmix_tpu/contexts/hashes.py (same constants, same update rule),
 batched over blocks.  Every u32 leaf is an int64 tensor holding the u32
-value (see ``u32``).  The WRT codeword tracker (gate WRTW) is not ported
-yet: the slice runs at WRTW=0, where those leaves only carry through.
+value (see ``u32``).  The WRT codeword tracker runs at the gate value
+``wrtw`` given to ``update_ctx_state_batched`` (the JAX package reads a
+module global): at 0 its leaves only carry through, at 1 a completed
+codeword latches its byte hash as the last word and stem, at 2 and above
+the dictionary's ``build_wrtw_tables`` identities where it has them.
 """
 
 import numpy as np
 import torch
 
-from cmix_tpu_torch.u32 import M32, mix32
+from cmix_tpu_torch.u32 import M32, PHI32, mix32
 
 MAX_ORDER = 24          # rolling hashes maintained for orders 1..MAX_ORDER
+# WRTW >= 2: per-codeword-id tables of the word and stem hashes the letter
+# tracker computes for the word's lowercase spelling (ids past the list
+# are 0 rows: the codeword's byte hash stands in)
+WRTW_TAB_N = 32768
+# the codeword layout of preprocess/wrt.py (Dictionary._emit_code)
+_CW_N1, _CW_N2 = 64, 48 * 256
+
+
+def build_wrtw_tables(words):
+    """words: lowercase spellings in codeword-id order -> (word_hash,
+    stem_hash) uint32 arrays of WRTW_TAB_N rows (copy of
+    cmix_tpu/contexts/hashes.py)."""
+    wt = np.zeros(WRTW_TAB_N, np.uint32)
+    st = np.zeros(WRTW_TAB_N, np.uint32)
+
+    def _mix(h, x):
+        h = ((h ^ x) * PHI32) & M32
+        return h ^ (h >> 15)
+
+    for i, w in enumerate(words[:WRTW_TAB_N]):
+        h = 0
+        hist = [h]                      # hist[k] = hash of first k letters
+        for ch in w:
+            h = _mix(h, ord(ch))
+            hist.append(h)
+        n = len(w)
+        # the suffix rules of update_ctx_state_batched's m3/m2/m1 (its
+        # wordlen cap at 63 is beyond a dictionary word's length)
+        if n >= 5 and w[-3:] in ("ing", "ion"):
+            s = hist[n - 3]
+        elif n >= 4 and w[-2:] in ("ed", "er", "es", "ly", "al"):
+            s = hist[n - 2]
+        elif n >= 3 and w[-1] == "s" and w[-2] != "s":
+            s = hist[n - 1]
+        else:
+            s = h
+        wt[i], st[i] = h, s
+    return wt, st
 
 
 def byte_class_map():
@@ -166,8 +207,53 @@ def _cc(*chars):
     return v
 
 
-def update_ctx_state_batched(cs, b):
-    """Advance the context state by one byte per block; b int64 (B,)."""
+def _wrtw_step(cs, b, wrtw, wrtw_tab, last_word, last_word2, last_stem):
+    """The WRT codeword tracker (gate WRTW >= 1): a codeword's lead
+    (0x80-0xBF one byte, 0xC0-0xEF two, 0xF0-0xFF three) starts a byte
+    hash ``cwacc``, ``cwrem`` counts its bytes still to come (15: an ESC
+    was seen, the next byte is a literal) and at WRTW >= 2 ``cwid`` builds
+    the codeword id; a completed codeword becomes the last word and stem.
+    -> (cwacc, cwrem, cwid, last_word, last_word2, last_stem)."""
+    esc_pend = cs["cwrem"] == 15
+    track = (cs["cwrem"] == 0) & ~esc_pend
+    is_esc = track & (b == 0x04)
+    lead = track & (b >= 0x80) & ~is_esc
+    rem_new = torch.where(
+        lead, torch.where(b >= 0xF0, 2, torch.where(b >= 0xC0, 1, 0)),
+        torch.clamp(cs["cwrem"], min=1) - 1)
+    cont = (cs["cwrem"] > 0) & ~esc_pend
+    in_cw = lead | cont
+    cwacc = torch.where(lead, mix32(b, 0x051ED270),
+                        torch.where(cont, mix32(cs["cwacc"], b),
+                                    cs["cwacc"]))
+    cw_done = in_cw & (rem_new == 0)
+    cwrem = torch.where(is_esc, 15, torch.where(in_cw, rem_new, 0))
+    cwid = cs["cwid"]
+    if wrtw >= 2:
+        lead_id = torch.where(
+            b >= 0xF0, _CW_N1 + _CW_N2 + ((b - 0xF0) << 16),
+            torch.where(b >= 0xC0, _CW_N1 + ((b - 0xC0) << 8), b - 0x80))
+        # rem_new is 0 or 1 on a continuation byte (the clamp only keeps
+        # the discarded lanes' shift in range)
+        shift = 8 * torch.clamp(rem_new, max=2)
+        cwid = torch.where(lead, lead_id,
+                           torch.where(cont, (cwid + (b << shift)) & M32,
+                                       cwid))
+    last_word2 = torch.where(cw_done, last_word, last_word2)
+    tw = ts = cwacc
+    if wrtw >= 2 and wrtw_tab is not None:
+        wi = torch.clamp(cwid, max=WRTW_TAB_N - 1)
+        tw, ts = wrtw_tab[0][wi], wrtw_tab[1][wi]
+        tw = torch.where(tw != 0, tw, cwacc)
+        ts = torch.where(ts != 0, ts, cwacc)
+    return (cwacc, cwrem, cwid, torch.where(cw_done, tw, last_word),
+            last_word2, torch.where(cw_done, ts, last_stem))
+
+
+def update_ctx_state_batched(cs, b, wrtw=0, wrtw_tab=None):
+    """Advance the context state by one byte per block; b int64 (B,).
+    ``wrtw``: the WRTW gate value; ``wrtw_tab``: (word, stem) int64 u32
+    tables of WRTW_TAB_N rows (WRTW >= 2; None keeps the byte hash)."""
     dev = b.device
     ohash = cs["ohash"]
     new_ohash = torch.cat(
@@ -224,6 +310,11 @@ def update_ctx_state_batched(cs, b):
     last_stem = torch.where(ended, stem, cs["last_stem"])
     last_word = torch.where(ended, cs["word"], cs["last_word"])
     last_word2 = torch.where(ended, cs["last_word"], cs["last_word2"])
+    if wrtw:
+        cwacc, cwrem, cwid, last_word, last_word2, last_stem = _wrtw_step(
+            cs, b, wrtw, wrtw_tab, last_word, last_word2, last_stem)
+    else:
+        cwacc, cwrem, cwid = cs["cwacc"], cs["cwrem"], cs["cwid"]
     wordlen = torch.where(letter, torch.clamp(cs["wordlen"] + 1, max=63), 0)
     word_pfx = torch.where(~letter, 0,
                            torch.where(cs["wordlen"] < 4,
@@ -277,7 +368,7 @@ def update_ctx_state_batched(cs, b):
             "brk_stack": stack, "brk_depth": depth,
             "bytecnt": (cs["bytecnt"] + 1) & M32,
             "lbuf": lbuf, "plbuf": plbuf, "plen": plen, "lml": lml,
-            "cwacc": cs["cwacc"], "cwrem": cs["cwrem"], "cwid": cs["cwid"],
+            "cwacc": cwacc, "cwrem": cwrem, "cwid": cwid,
             "cellidx": cellidx, "cellpos": cellpos, "cellbuf": cellbuf,
             "pcellbuf": pcellbuf, "listdepth": listdepth,
             "listchar": listchar, "lsflag": lsflag}

@@ -3,7 +3,8 @@
 ``from_jax_state(sh, pb, cd)`` takes the JAX package's state pytrees as
 numpy arrays (the caller runs ``jax.device_get``) and returns the port's
 tensors: uint32 tables become int32 tensors holding the same bits, small
-u32 leaves become int64 values, the bank chunks ``bank``/``bank2``/... are
+u32 leaves (and the WRTW=2 codeword tables ``wrtw_word``/``wrtw_stem``)
+become int64 values, the bank chunks ``bank``/``bank2``/... are
 joined into one table, the DMC tables' TPU tile layout (B, N/1024, 8, 128)
 becomes flat (B, N).  The portable profile's integer tables and the
 integer LSTM's leaves stay int32, as the port computes them; float32 leaves
@@ -28,8 +29,9 @@ _INT32 = {"ppm_ck", "dmc_cur", "dmc_top", "dmc_uX", "dmc_uS", "dmc_uU",
           "d0_p", "d0_c", "match_conf", "match2_conf", "runx_conf",
           "ppm_see", "sbank_p", "w1", "bias1", "w2", "w2b", "w2c", "w2x",
           "bias2", "w3", "bias3", "apm", "w_apm"}
-# uint32 leaves held as int64 u32 values
-_U32_SMALL = {"ind_val", "h32", "h48", "x1", "x2", "xc"}
+# uint32 leaves held as int64 u32 values (the WRTW=2 codeword tables too)
+_U32_SMALL = {"ind_val", "h32", "h48", "x1", "x2", "xc", "wrtw_word",
+              "wrtw_stem"}
 _U32_TREES = {"ctx", "x86"}
 _SEP = 64                          # the JAX package's BANK_SPLIT
 

@@ -22,10 +22,14 @@ Two profiles, as in the JAX package (README "Determinism contract"):
 
 On each of these sets the runner switches on the content-routed gates
 (``runner.compress``): X86X=2 (4 opcode-stream bank contexts), GRID2=1 (2
-record-grid pixel contexts), JPEGX=1 (8 coefficient-plane contexts) and,
-outside PORT, LMS=2 (the strided linear predictor, one input, media blocks
-only).  Every other gate value raises NotImplementedError naming the
-ROADMAP.md item that will port it.
+record-grid pixel contexts), JPEGX=1 (8 coefficient-plane contexts),
+outside PORT LMS=2 (the strided linear predictor, one input, media blocks
+only), and with a dictionary WRTW=1 (the WRT codeword tracker of
+``contexts/hashes.py``; any WRTW value is accepted, and at 2 and above the
+shared state carries the dictionary's ``wrtw_word``/``wrtw_stem`` tables).
+``make_pretrainer`` replays a dictionary through the model at B=1 (the
+runner's pretraining).  Every other gate value raises NotImplementedError
+naming the ROADMAP.md item that will port it.
 
 Determinism on the card (encode and decode must compute the same bits):
 
@@ -42,6 +46,7 @@ Determinism on the card (encode and decode must compute the same bits):
   operator of the step writes its whole output.
 """
 
+import dataclasses
 import os
 from dataclasses import dataclass
 from functools import cached_property
@@ -50,7 +55,8 @@ import numpy as np
 import torch
 
 from cmix_tpu_torch.contexts.hashes import (
-    init_ctx_state, update_ctx_state_batched, bracket_ctx, line_expected)
+    WRTW_TAB_N, init_ctx_state, update_ctx_state_batched, bracket_ctx,
+    line_expected)
 from cmix_tpu_torch.contexts.x86 import (
     init_x86_state, x86_update, x86_ctx_vals, x86_ext_vals, x86_ext_vals2)
 from cmix_tpu_torch.mixer.ilstm import (
@@ -129,10 +135,9 @@ _GATE_SPEC = (
 # the bench speed profile (bench.py:65-69): the one other gate set ported
 BENCH_GATES = {"DMC_LEVELS": 7, "PPM_CK": 0, "PPM_DEEP": 0, "BANK_CH": 1,
                "CTX4": 0}
-# where each not-yet-ported gate value is queued (ROADMAP.md, queue 1)
-_LATER = {"WRTW": "item 12 (WRT and dictionary pretraining)"}
 # the values runner.compress routes from the content, accepted on top of
-# every supported gate set (LMS stays a FormatError with PORT)
+# every supported gate set (LMS stays a FormatError with PORT); WRTW, which
+# it routes with a dictionary, at any value
 _ROUTED = {"X86X": ("0", "2"), "GRID2": ("0", "1"), "JPEGX": ("0", "1"),
            "LMS": ("0", "2")}
 # the portable profile's gates: PORT on top of the defaults, and the
@@ -223,6 +228,10 @@ class Gates:
     @cached_property
     def lms(self):
         return self._i("LMS")
+
+    @cached_property
+    def wrtw(self):
+        return self._i("WRTW")
 
     # ---- derived sizes (cf. cmix_tpu/engine.py _derive)
     @cached_property
@@ -350,13 +359,13 @@ def make_gates(env=None) -> Gates:
         raise FormatError("PORT=1 requires VMATCH=0, LMS=0, MIX_TAU=0 "
                           "and MIX_BOOST=0 (float-internal paths)")
     # the gate set under the routed gates: the defaults or the bench set
-    base = {n: _DEFAULTS[n] if v in _ROUTED.get(n, ()) else v
-            for n, v in vals.items()}
+    base = {n: _DEFAULTS[n] if v in _ROUTED.get(n, ()) or n == "WRTW"
+            else v for n, v in vals.items()}
     off = [n for n, _, _ in _GATE_SPEC
            if base[n] != _DEFAULTS[n] and n not in _PORT_GATES]
     if off and base != _BENCH:
         n = off[0]
-        where = _LATER.get(n, _OFF_BY_DEFAULT)
+        where = _OFF_BY_DEFAULT
         if n in BENCH_GATES:
             where = ("the bench profile's gates only as the whole set "
                      f"{BENCH_GATES}, without PORT; other mixes: " + where)
@@ -400,6 +409,8 @@ CNT_CAP = 60
 MIX_LR = 4e-3
 LMS_K = 4
 LMS_MU = 0.002
+PRETRAIN_SEG = 4096        # pretraining's segment (min'd with the block):
+#                            sets the dictionary stream's padding
 
 _NODE = np.arange(256)
 _LEVEL = np.zeros(256, dtype=np.int64)
@@ -527,11 +538,13 @@ def _apm_row():
     return (1.0 / (1.0 + np.exp(-stv))).astype(np.float32)
 
 
-def init_shared(cfg: EngineConfig, g: Gates, device):
+def init_shared(cfg: EngineConfig, g: Gates, device, wrtw_tables=None):
     """Shared (per coding group) learned state -- no batch dimension.
     u32 tables are int32 tensors holding the bits; the bank is one
     (N_BANK, rows, 256) table (the JAX package splits it in <=64-bank
-    chunks for a TPU runtime limit)."""
+    chunks for a TPU runtime limit).  At WRTW >= 2 it holds the codeword
+    tables ``wrtw_tables`` (``hashes.build_wrtw_tables`` of the
+    dictionary; zeros without one) as int64 u32 values."""
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     n_pri = g.n_primary
@@ -585,6 +598,11 @@ def init_shared(cfg: EngineConfig, g: Gates, device):
         lcfg = _lstm_cfg(cfg, g)
         sh["lstm"] = (init_ilstm_shared(lcfg, device) if g.port else
                       init_lstm_shared(lcfg, device))
+    if g.wrtw >= 2:
+        for key, tab in zip(("wrtw_word", "wrtw_stem"), wrtw_tables or (
+                np.zeros(WRTW_TAB_N, np.uint32),) * 2):
+            sh[key] = torch.as_tensor(np.asarray(tab, np.int64),
+                                      device=device)
     return sh
 
 
@@ -1978,7 +1996,9 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device):
         pb["rec_lastpos"] = pb["rec_lastpos"].scatter(
             1, byte[:, None], torch.full_like(gap[:, None], t))
 
-        pb["ctx"] = update_ctx_state_batched(pb["ctx"], byte)
+        pb["ctx"] = update_ctx_state_batched(
+            pb["ctx"], byte, g.wrtw,
+            (sh["wrtw_word"], sh["wrtw_stem"]) if g.wrtw >= 2 else None)
         pb["x86"] = x86_update(pb["x86"], byte)
         sh, pb = _aux_writes_b(cfg, g, sh, pb, byte, t, ind_key_prev,
                                ind_prev_val)
@@ -2090,3 +2110,39 @@ def make_transcoder(cfg: EngineConfig, g: Gates, device):
         return hist, out, out_len
 
     return transcode
+
+
+# ------------------------------------------------------------- pretraining
+
+
+def make_pretrainer(cfg: EngineConfig, g: Gates, device):
+    """``(sh, data) -> sh``: replays a training stream (uint8) through the
+    full model update at B=1 in encode mode, starting from ``sh`` (updated
+    in place), and throws away the positional state and the coder (cf.
+    cmix_tpu/engine.py make_pretrainer).  The stream is padded with spaces
+    to whole segments of ``PRETRAIN_SEG`` bytes, clamped to the block size
+    as every ``EngineConfig`` clamps its segment; byte i runs at position
+    i mod block_size (the JAX package's t0 = (si * s) mod block_size of
+    segment si).  After the replay the match region of ``aux_tbl`` is
+    zeroed: its entries point into the discarded history."""
+    pcfg = dataclasses.replace(cfg, seg_size=PRETRAIN_SEG)
+    step = make_byte_step(pcfg, g, device)
+
+    def pretrain(sh, data):
+        data = np.asarray(data, dtype=np.uint8)
+        s = pcfg.seg_size
+        pad = np.full(-(-len(data) // s) * s, 32, dtype=np.uint8)
+        pad[:len(data)] = data
+        inp = torch.as_tensor(pad[:, None].copy(), device=device)
+        pb = init_perblock(pcfg, g, 1, device)
+        cd = init_coder(1, device)
+        comp = torch.zeros((1, 8), dtype=torch.uint8, device=device)
+        mode = torch.zeros(1, dtype=torch.int64, device=device)
+        with torch.no_grad():
+            for i in range(len(pad)):
+                sh, pb, cd, _, _ = step(sh, pb, cd, comp, inp[i],
+                                        i % pcfg.block_size, mode)
+            sh["aux_tbl"][:2 * g.n_match * (1 << pcfg.mbits)] = 0
+        return sh
+
+    return pretrain

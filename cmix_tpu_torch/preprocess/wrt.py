@@ -1,18 +1,20 @@
 """Content detection, the per-segment transforms and the segment table.
 
-Copy of cmix_tpu/preprocess/wrt.py without the WRT dictionary transform
-(ROADMAP.md queue 1, item 12): the same chunk classifier and x86 score (the
-JAX package's pure-Python rules, vectorized with numpy; its native twin
-computes the same counts), the same segment types, the same merge of
+Copy of cmix_tpu/preprocess/wrt.py: the same chunk classifier and x86 score
+(the JAX package's pure-Python rules, vectorized with numpy; its native
+twin computes the same counts), the same segment types, the same merge of
 adjacent detection chunks, and the transforms ``transform`` applies to
-them: the EXE E8/E9 absolutization (the Python twin ``_exe_py``, which is
-bit-identical to the JAX package's native library by design), the 24-bit
-color decorrelation (``media.img24_encode``) and the JPEG recoder
-(``jpeg.jpeg_recode``).  ``block_strides``, ``block_jpeg_coords`` and
-``block_kinds`` derive the engine's per-block fields from the segment
-table, so encode and decode agree.  Text is recorded as a raw segment (no
-dictionary), and the port always takes the JAX package's default routes
-(JPEG recoding on: it reads no ``CMIX_JPEGC``).
+them: the WRT word dictionary on text where it shrinks the segment
+(``Dictionary``, the JAX package's Python twin; its native library codes
+the same bytes), the EXE E8/E9 absolutization (the Python twin
+``_exe_py``, which is bit-identical to the JAX package's native library by
+design), the 24-bit color decorrelation (``media.img24_encode``) and the
+JPEG recoder (``jpeg.jpeg_recode``).  ``block_strides``,
+``block_jpeg_coords`` and ``block_kinds`` derive the engine's per-block
+fields from the segment table, so encode and decode agree.  Without a
+dictionary text is recorded as a raw segment, and the port always takes
+the JAX package's default routes (JPEG recoding on: it reads no
+``CMIX_JPEGC``).
 """
 
 import numpy as np
@@ -26,6 +28,129 @@ _MEDIA_SEGS = (SEG_IMG24, SEG_IMG8, SEG_AUDIO)
 # segments whose meta entry carries a 4th field (record stride hint)
 _STRIDE_SEGS = _MEDIA_SEGS + (SEG_JPEGC,)
 _DETECT_CHUNK = 1 << 16
+
+# WRT codewords: ESC escapes a literal byte >= 0x80 (and the three marks
+# themselves), CAP/UPR mark a capitalized/upper-case word; ids < N1 take
+# one byte (0x80+id), the next N2 two (lead 0xC0-0xEF), the rest three
+ESC, CAP, UPR = 0x04, 0x05, 0x06
+N1, N2 = 64, 48 * 256
+
+
+class Dictionary:
+    """Word dictionary for the WRT transform: a frequency-ordered word
+    list, one word per line (the reference's english.dic asset); a word's
+    id is its first line, its codeword is ``_emit_code``'s."""
+
+    def __init__(self, path):
+        self.path = path
+        self.words = []
+        self.ids = {}
+        with open(path, "rb") as f:
+            for line in f:
+                w = line.strip().decode("latin-1")
+                if w and w not in self.ids:
+                    self.ids[w] = len(self.words)
+                    self.words.append(w)
+
+    def _emit_code(self, o, i):
+        if i < N1:
+            o.append(0x80 + i)
+        elif i < N1 + N2:
+            v = i - N1
+            o += bytes([0xC0 + (v >> 8), v & 0xFF])
+        else:
+            v = i - N1 - N2
+            o += bytes([0xF0 + (v >> 16), (v >> 8) & 0xFF, v & 0xFF])
+
+    def encode(self, data: bytes) -> bytes:
+        """Each maximal run of ASCII letters that is a dictionary word in
+        lower case, capitalized (CAP) or upper case of two or more letters
+        (UPR) becomes its codeword; bytes >= 0x80 and the marks are
+        escaped; everything else passes."""
+        o = bytearray()
+        i, n = 0, len(data)
+        while i < n:
+            c = data[i]
+            if (65 <= c <= 90) or (97 <= c <= 122):
+                j = i
+                while j < n and (65 <= data[j] <= 90 or 97 <= data[j] <= 122):
+                    j += 1
+                w = data[i:j].decode("latin-1")
+                lw = w.lower()
+                wid = self.ids.get(lw)
+                is_lower = w == lw
+                is_cap = w[0].isupper() and w[1:] == lw[1:]
+                is_upper = w.isupper() and len(w) > 1
+                if wid is not None and (is_lower or is_cap or is_upper):
+                    if is_upper:
+                        o.append(UPR)
+                    elif is_cap:
+                        o.append(CAP)
+                    self._emit_code(o, wid)
+                else:
+                    o += data[i:j]
+                i = j
+            elif c >= 0x80 or c in (ESC, CAP, UPR):
+                o += bytes([ESC, c])
+                i += 1
+            else:
+                o.append(c)
+                i += 1
+        return bytes(o)
+
+    def decode(self, data: bytes) -> bytes:
+        """The inverse of ``encode`` (a truncated codeword passes as its
+        lead byte, an id past the list decodes to nothing)."""
+        o = bytearray()
+        i, n = 0, len(data)
+        capmode = 0
+        while i < n:
+            c = data[i]
+            if c == ESC and i + 1 < n:
+                o.append(data[i + 1])
+                i += 2
+                capmode = 0
+                continue
+            if c == CAP:
+                capmode = 1
+                i += 1
+                continue
+            if c == UPR:
+                capmode = 2
+                i += 1
+                continue
+            if c < 0x80:
+                o.append(c)
+                i += 1
+                capmode = 0
+                continue
+            if c < 0xC0:
+                wid = c - 0x80
+                i += 1
+            elif c < 0xF0:
+                if i + 1 >= n:
+                    o.append(c)
+                    i += 1
+                    continue
+                wid = N1 + ((c - 0xC0) << 8 | data[i + 1])
+                i += 2
+            else:
+                if i + 2 >= n:
+                    o.append(c)
+                    i += 1
+                    continue
+                wid = N1 + N2 + ((c - 0xF0) << 16
+                                 | data[i + 1] << 8 | data[i + 2])
+                i += 3
+            if 0 <= wid < len(self.words):
+                w = self.words[wid]
+                if capmode == 1:
+                    w = w[0].upper() + w[1:]
+                elif capmode == 2:
+                    w = w.upper()
+                o += w.encode("latin-1")
+            capmode = 0
+        return bytes(o)
 
 
 def detect_text_chunks(data: bytes, chunk: int = 4096):
@@ -157,10 +282,11 @@ def exe_decode(data: bytes) -> bytes:
 # ------------------------------------------------- segmented preprocessing
 
 
-def transform(data: bytes):
+def transform(data: bytes, dictionary=None):
     """Detect content types and apply per-segment transforms ->
-    (payload, meta): meta entries are (type, enc_len, raw_len), media
-    entries add the record stride, recoded-JPEG entries also the body
+    (payload, meta): text is WRT-coded where ``dictionary`` (a
+    ``Dictionary``) shrinks it; meta entries are (type, enc_len, raw_len),
+    media entries add the record stride, recoded-JPEG entries also the body
     offset and the per-component plane lengths."""
     if not data:
         return data, [(SEG_RAW, 0, 0)]
@@ -171,7 +297,12 @@ def transform(data: bytes):
     meta = []
     for typ, lo, hi, stride in segments(data):
         raw = data[lo:hi]
-        if typ == SEG_EXE:
+        enc = (dictionary.encode(raw)
+               if typ == SEG_TEXT and dictionary is not None else raw)
+        if len(enc) < len(raw):
+            payload += enc
+            meta.append((SEG_TEXT, len(enc), len(raw)))
+        elif typ == SEG_EXE:
             enc = exe_encode(raw)
             payload += enc
             meta.append((SEG_EXE, len(enc), len(raw)))
@@ -191,13 +322,16 @@ def transform(data: bytes):
                 payload += enc
                 meta.append((SEG_JPEGC, len(enc), len(raw),
                              jpeg_stride(raw), body_off, tuple(clens[:4])))
-        else:                                # text without a dictionary
+        else:                                # raw, or text WRT cannot shrink
             payload += raw
             meta.append((SEG_RAW, len(raw), len(raw)))
     return bytes(payload), meta
 
 
-def untransform(payload: bytes, meta) -> bytes:
+def untransform(payload: bytes, meta, dictionary=None) -> bytes:
+    """The inverse of ``transform``; a WRT text segment needs the
+    dictionary that coded it (FormatError without one)."""
+    from cmix_tpu_torch.engine import FormatError
     from cmix_tpu_torch.preprocess.jpeg import jpeg_unrecode
     from cmix_tpu_torch.preprocess.media import img24_decode
     out = bytearray()
@@ -207,10 +341,11 @@ def untransform(payload: bytes, meta) -> bytes:
         seg = payload[off:off + enc_len]
         off += enc_len
         if typ == SEG_TEXT:
-            raise NotImplementedError(
-                "WRT-coded text segments are not ported to cmix_tpu_torch "
-                "yet (ROADMAP.md queue 1, item 12)")
-        if typ == SEG_EXE:
+            if dictionary is None:
+                raise FormatError("a WRT text segment needs the dictionary "
+                                  "it was coded with")
+            out += dictionary.decode(seg)
+        elif typ == SEG_EXE:
             out += exe_decode(seg)
         elif typ == SEG_IMG24:
             out += img24_decode(seg, entry[3])

@@ -16,16 +16,22 @@ content transforms (``preprocess/wrt.transform``: E8/E9 on x86 code, the
 top of the caller's (X86X=2 for x86 code, GRID2=1 for strided media or a
 recoded JPEG, LMS=2 for media outside PORT, JPEGX=1 for a recoded JPEG:
 the JAX package's defaults) and writes the segment table; ``decompress``
-reads it and inverts the transforms.  A portable archive is byte-identical
-to the JAX package's and decodes on either package and any device.  A
-dictionary (WRT + pretraining) and ``--resume`` raise NotImplementedError
-naming the ROADMAP.md item that will port them.
+reads it and inverts the transforms.  With a dictionary (``--dict PATH``,
+or ``auto`` for the port's copy of the shipped ``data/english.dic``) text
+is WRT-coded where that shrinks it, WRTW=1 is routed with it, and every
+coding group starts from the shared state pretrained on the dictionary
+(``engine.make_pretrainer``, cached by ``utils/checkpoint.py``); the
+header carries the dictionary's fingerprint, and decode needs the same
+file.  A portable archive is byte-identical to the JAX package's and
+decodes on either package and any device.  ``--resume`` raises
+NotImplementedError naming the ROADMAP.md item that will port it.
 
     python -m cmix_tpu_torch.runner c|d|t INPUT OUTPUT [--portable]
-        [--device cpu]
+        [--dict PATH|auto] [--device cpu]
 """
 
 import argparse
+import os
 import struct
 import time
 
@@ -36,7 +42,10 @@ from cmix_tpu_torch.version import FORMAT_VERSION, MAGIC
 from cmix_tpu_torch.engine import (
     EngineConfig, FormatError, MODE_DECODE, MODE_ENCODE, gates_from_blob,
     init_perblock, init_shared, make_gates, make_transcoder, resolve_device)
+from cmix_tpu_torch.contexts.hashes import build_wrtw_tables
 from cmix_tpu_torch.preprocess import wrt
+from cmix_tpu_torch.utils.checkpoint import (
+    cached_pretrained_state, clone_state, dict_fingerprint)
 
 _RAW_FLAG = 0x80000000
 _FLAG_WRT = 1
@@ -52,7 +61,9 @@ _FLAG_PRETRAIN = 2
 _HDR = "<BBBBBBBBBBBHHQQI8s32s"
 _HDR_LEN = struct.calcsize(_HDR)
 _NO_DICT = b"\0" * 8
-_LATER_DICT = "ROADMAP.md queue 1, item 12 (WRT and dictionary pretraining)"
+# --dict auto: the port's copy of cmix_tpu/data/english.dic
+AUTO_DICT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                         "english.dic")
 _LATER_RESUME = "ROADMAP.md queue 1, item 13 (--resume journal)"
 # dummy lanes' JPEGX offset: off every plane (as the JAX runner pads)
 _NO_JPEG = -(1 << 31) + 1
@@ -98,14 +109,17 @@ def _split_blocks(data: bytes, n: int):
     return arr
 
 
-def _routed_gates(seg_meta, port):
+def _routed_gates(seg_meta, port, dictionary):
     """The content-routed gate values (cmix_tpu/runner.py compress): on
-    exactly when the segment table holds the content they model.  JVAL
-    and WRTW stay off (no JVAL route by default, no dictionary)."""
+    exactly when the segment table holds the content they model; WRTW=1
+    when the payload was transformed and a dictionary given (whatever the
+    transform: an EXE-only input coded with a dictionary routes it too).
+    JVAL stays off (no JVAL route by default)."""
     types = {e[0] for e in seg_meta or ()}
     return {"JPEGX": int(wrt.SEG_JPEGC in types),
             "GRID2": int(bool(types & set(wrt._STRIDE_SEGS))),
-            "X86X": 2 * (wrt.SEG_EXE in types), "JVAL": 0, "WRTW": 0,
+            "X86X": 2 * (wrt.SEG_EXE in types), "JVAL": 0,
+            "WRTW": int(seg_meta is not None and dictionary is not None),
             "LMS": 2 * (not port and any(3 <= e[0] <= 5 and e[1]
                                          for e in seg_meta or ()))}
 
@@ -119,11 +133,32 @@ def _block_fields(seg_meta, nb, n):
             *wrt.block_jpeg_coords(seg_meta, nb, n))
 
 
-def _group_state(cfg, g, b, vforce, device, fields, lo, real):
-    """(sh, pb) of one coding group of ``b`` lanes; the ``real`` lanes from
+def _load_dictionary(path):
+    """-> (Dictionary, its file's bytes, the header fingerprint, the WRTW
+    codeword tables of its lowercase words); ``path`` "auto" is AUTO_DICT.
+    A missing file raises."""
+    path = AUTO_DICT if path == "auto" else path
+    d = wrt.Dictionary(path)
+    with open(path, "rb") as f:
+        dict_bytes = f.read()
+    return (d, dict_bytes, dict_fingerprint(dict_bytes),
+            build_wrtw_tables([w.lower() for w in d.words]))
+
+
+def _pretrained_base(cfg, g, device, dict_bytes, tables):
+    """The dictionary's pretrained shared state: its bytes replayed with
+    LF -> space, as the JAX runner (and the reference) replays them."""
+    return cached_pretrained_state(cfg, g, device,
+                                   dict_bytes.replace(b"\n", b" "), tables)
+
+
+def _group_state(cfg, g, b, vforce, device, fields, lo, real, base=None):
+    """(sh, pb) of one coding group of ``b`` lanes; the shared state a copy
+    of the pretrained ``base`` (fresh without one); the ``real`` lanes from
     block ``lo`` on take their segment-table fields, dummy lanes the JAX
     runner's pads (no stride, raw kind, off every JPEG plane)."""
-    sh = init_shared(cfg, g, device)
+    sh = (init_shared(cfg, g, device) if base is None
+          else clone_state(base))
     sh["vocab_force"] = torch.as_tensor(vforce, device=device)
     pb = init_perblock(cfg, g, b, device)
     if fields is not None:
@@ -177,13 +212,12 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
              device="cuda", resume_path=None) -> bytes:
     """Compress ``data`` into a TCMX archive.
 
+    dictionary: path of a word list ("auto": AUTO_DICT); enables the WRT
+    text transform where it shrinks the payload, and pretraining.
     gates: mapping of gate name -> value (missing = default); the port
     accepts the defaults, ``engine.BENCH_GATES``, and PORT=1 (with any
     ILSTM_LRX/ILSTM_ADAM) on top of the defaults.  The content-routed
     gates are then set from the content, whatever the caller gave."""
-    if dictionary is not None:
-        raise NotImplementedError(
-            f"--dict is not ported to cmix_tpu_torch yet ({_LATER_DICT})")
     if resume_path is not None:
         raise NotImplementedError(
             f"--resume is not ported to cmix_tpu_torch yet ({_LATER_RESUME})")
@@ -192,16 +226,23 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
                           "of two (the archive header stores its log2)")
     g = make_gates(gates)
     dev = resolve_device(device)
-    payload, seg_meta = wrt.transform(data)
-    flags = 0
-    # text without a dictionary is recorded as a raw segment: an input of
-    # text and raw bytes only keeps its bytes and gets no segment table
+    d, dict_bytes, fp, tables = (_load_dictionary(dictionary)
+                                 if dictionary is not None
+                                 else (None, b"", _NO_DICT, None))
+    payload, seg_meta = wrt.transform(data, d)
+    flags = _FLAG_PRETRAIN if d is not None else 0
+    # text WRT does not shrink (all text, without a dictionary) is recorded
+    # as a raw segment: an input of such text and raw bytes only keeps its
+    # bytes and gets no segment table
     if len(payload) >= len(data) and all(e[0] == wrt.SEG_RAW
                                          for e in seg_meta):
         payload, seg_meta = data, None
     else:
         flags |= _FLAG_WRT
-    g = make_gates(dict(g.env, **_routed_gates(seg_meta, g.port)))
+    g = make_gates(dict(g.env, **_routed_gates(seg_meta, g.port, d)))
+    # after the routing: the pretrained state is the routed ensemble's
+    base = (_pretrained_base(cfg, g, dev, dict_bytes, tables)
+            if d is not None else None)
     n = cfg.block_size
     blocks = _split_blocks(payload, n)
     nb = blocks.shape[0]
@@ -217,7 +258,7 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
         if b < eb:
             batch = np.concatenate(
                 [batch, np.zeros((eb - b, n), dtype=np.uint8)], axis=0)
-        sh, pb = _group_state(cfg, g, eb, vforce, dev, fields, lo, b)
+        sh, pb = _group_state(cfg, g, eb, vforce, dev, fields, lo, b, base)
         _, out, out_len = trans(sh, pb, batch,
                                 np.zeros((eb, cfg.comp_size), np.uint8),
                                 MODE_ENCODE)
@@ -234,7 +275,7 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
         cfg.tbits, cfg.mbits, cfg.ibits, cfg.pbits,
         cfg.dmc_nodes.bit_length() - 1 if cfg.dmc_nodes else 0,
         cfg.seg_size.bit_length() - 1, cfg.lstm_layers, cfg.lstm_horizon,
-        cfg.lstm_hidden, eb, len(data), len(payload), nb, _NO_DICT, vocab) \
+        cfg.lstm_hidden, eb, len(data), len(payload), nb, fp, vocab) \
         + struct.pack("<H", len(blob)) + blob
     segtbl = _seg_table(seg_meta) if flags & _FLAG_WRT else b""
     lens = b"".join(struct.pack("<I", len(s) | (_RAW_FLAG if raw else 0))
@@ -245,7 +286,9 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
 def decompress(archive: bytes, dictionary: str = None,
                device="cuda") -> bytes:
     """Decode a TCMX archive.  The archive's gate record and header pin
-    the ensemble and the exec batch; malformed input raises FormatError."""
+    the ensemble and the exec batch; malformed input raises FormatError,
+    and so does an archive coded with a dictionary when ``dictionary`` is
+    not that file (it is ignored for an archive coded without one)."""
     if len(archive) < 4 + _HDR_LEN + 2:
         raise FormatError("truncated archive (shorter than the header)")
     if archive[:4] != MAGIC:
@@ -263,10 +306,15 @@ def decompress(archive: bytes, dictionary: str = None,
     if len(blob) != glen:
         raise FormatError("truncated archive (gate record)")
     off += 2 + glen
-    if dictionary is not None or flags & _FLAG_PRETRAIN:
-        raise NotImplementedError(
-            "dictionary-pretrained archives are not ported to "
-            f"cmix_tpu_torch yet ({_LATER_DICT})")
+    d = tables = None
+    if flags & _FLAG_PRETRAIN:
+        if dictionary is None:
+            raise FormatError("archive requires the dictionary it was "
+                              "compressed with (pass dictionary=...)")
+        d, dict_bytes, fp2, tables = _load_dictionary(dictionary)
+        if fp2 != fp:
+            raise FormatError("dictionary fingerprint mismatch: not the "
+                              "dictionary this archive was coded with")
     seg_meta = None
     if flags & _FLAG_WRT:
         seg_meta, off = _read_seg_table(archive, off)
@@ -290,6 +338,8 @@ def decompress(archive: bytes, dictionary: str = None,
     if off > len(archive):
         raise FormatError("truncated archive (block streams end at "
                           f"{off}, archive is {len(archive)} bytes)")
+    base = (_pretrained_base(cfg, g, dev, dict_bytes, tables)
+            if d is not None else None)
     n = cfg.block_size
     trans = make_transcoder(cfg, g, dev)
     vforce = _vocab_force(vocab)
@@ -307,13 +357,13 @@ def decompress(archive: bytes, dictionary: str = None,
                 comp[j, :len(s)] = np.frombuffer(s, dtype=np.uint8)
                 modes[j] = MODE_DECODE
         sh, pb = _group_state(cfg, g, eb, vforce, dev, fields, lo,
-                              len(group))
+                              len(group), base)
         hist, _, _ = trans(sh, pb, inp, comp, modes)
         for j, (raw, s) in enumerate(group):
             out_parts[lo + j] = s if raw else bytes(hist[j].tobytes())
     payload = b"".join(out_parts)[:payload_len]
     if seg_meta is not None:
-        payload = wrt.untransform(payload, seg_meta)
+        payload = wrt.untransform(payload, seg_meta, d)
     if len(payload) != orig_len:
         raise FormatError(
             f"decoded length {len(payload)} != {orig_len} (corrupt "
@@ -334,7 +384,9 @@ def main(argv=None):
     ap.add_argument("input")
     ap.add_argument("output")
     ap.add_argument("--dict", dest="dictionary", default=None,
-                    help="word dictionary (not ported yet: raises)")
+                    help="word dictionary (enables WRT + pretraining); "
+                    "'auto' uses the port's copy of the shipped English "
+                    "list (cmix_tpu_torch/data/english.dic)")
     ap.add_argument("--block-size", type=int, default=1 << 16)
     ap.add_argument("--tbits", type=int, default=18)
     ap.add_argument("--lstm", type=int, default=256)
@@ -367,7 +419,8 @@ def main(argv=None):
                        gates={"PORT": 1} if args.portable else None,
                        device=args.device, resume_path=args.resume)
         if args.mode == "t":
-            back = decompress(out, device=args.device)
+            back = decompress(out, dictionary=args.dictionary,
+                              device=args.device)
             assert back == data, "ROUNDTRIP FAILED"
         with open(args.output, "wb") as f:
             f.write(out)

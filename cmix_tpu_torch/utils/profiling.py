@@ -1,15 +1,16 @@
 """Where a byte step's time goes on the GPU (torch.profiler).
 
     python -m cmix_tpu_torch.utils.profiling [--batch 256] [--steps 8]
-        [--gates bench|bench-x86|default|routed|portable]
+        [--gates bench|bench-x86|default|routed|portable|wrtw]
 
 Builds the byte step of the bench speed profile (bench widths, the blocks
 of ``testdata/bench4m.raw``), or of another gate set at the same widths:
 the bench set with X86X=2 (what the runner routes for bench4m.raw, whose
 detector finds x86 code), the default gates, the default gates with the
 media and JPEG routes (GRID2=1, LMS=2, JPEGX=1; every block marked as
-24-bit image, so the LMS votes), or the portable profile (PORT=1 on the
-default gates); warms it up, then traces ``--steps`` steps with CPU and
+24-bit image, so the LMS votes), the portable profile (PORT=1 on the
+default gates), or the default gates with WRTW=1 (what the runner routes
+for a dictionary-coded archive: the WRT codeword tracker); warms it up, then traces ``--steps`` steps with CPU and
 CUDA activities and
 prints one JSON line: wall ms per step (host clock, synchronised), device
 busy ms per step (the sum of kernel and copy times on the one stream) and
@@ -37,7 +38,8 @@ GATE_SETS = {"bench": E.BENCH_GATES,
              "bench-x86": dict(E.BENCH_GATES, X86X=2),
              "default": {},
              "routed": {"GRID2": 1, "LMS": 2, "JPEGX": 1},
-             "portable": {"PORT": 1}}
+             "portable": {"PORT": 1},
+             "wrtw": {"WRTW": 1}}
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 

@@ -69,7 +69,7 @@ def test_empty_input_roundtrip():
 
 @pytest.mark.parametrize("gates", [
     {"X86X": 1}, {"PORT": 1, "CTX4": 0}, {"LMS": 1}, {"MIX_AUX": 1},
-    {"WRTW": 1},
+    {"JVAL": 1},
     {"DMC_LEVELS": 7},                   # a part of the bench set alone
     dict(E.BENCH_GATES, CTX4=1),
     dict(E.BENCH_GATES, PORT=1),         # PORT only on the default gates
@@ -120,18 +120,28 @@ def test_routed_fixture_round_trips_at_tiny_widths():
     assert runner.decompress(arc, device="cpu") == data
 
 
-def test_dictionary_resume_and_segmented_archives_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="dict"):
-        runner.compress(_text(64), SMALL, dictionary="english.dic",
-                        device="cpu")
+# the test keeps its name from when the port refused dictionaries: now a
+# --dict round trip through the CLI, and the archive refused without it
+def test_dictionary_resume_and_segmented_archives_raise(tmp_path,
+                                                        monkeypatch):
+    from cmix_tpu_torch.utils import checkpoint
+    monkeypatch.setattr(checkpoint, "CACHE_DIR", str(tmp_path / "cache"))
+    src, arc_path = tmp_path / "in.txt", tmp_path / "a.tcmx"
+    src.write_bytes(_text(512))
+    runner.main(["t", str(src), str(arc_path), "--device", "cpu",
+                 "--block-size", "16", "--tbits", "10", "--lstm", "8",
+                 "--dmc", "4096", "--dict", "testdata/mini.dic"])
+    runner.main(["d", str(arc_path), str(tmp_path / "b"), "--device", "cpu",
+                 "--dict", "testdata/mini.dic"])
+    assert (tmp_path / "b").read_bytes() == src.read_bytes()
+    arc = arc_path.read_bytes()
+    assert arc[5] == runner._FLAG_WRT | runner._FLAG_PRETRAIN
+    with pytest.raises(E.FormatError, match="requires the dictionary"):
+        runner.main(["d", str(arc_path), str(tmp_path / "c"), "--device",
+                     "cpu"])
     with pytest.raises(NotImplementedError, match="resume"):
         runner.compress(_text(64), SMALL, resume_path=str(tmp_path / "j"),
                         device="cpu")
-    src = tmp_path / "in.txt"
-    src.write_bytes(_text(64))
-    with pytest.raises(NotImplementedError):
-        runner.main(["c", str(src), str(tmp_path / "o"), "--device", "cpu",
-                     "--dict", "english.dic"])
     # flags bit 0 without the segment table it announces
     arc = bytearray(runner.compress(b"", TINY, device="cpu"))
     arc[5] = runner._FLAG_WRT
