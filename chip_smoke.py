@@ -53,15 +53,31 @@ without one.  Phases, each of which raises on failure:
    re-encode, flags 3 and WRTW=1 in the gate record), then the portable
    profile at CLI widths with an empty cache, its archive held to the JAX
    package's sha256 and decoded exactly;
-9. ms per byte step: the bench speed profile at B=256 and bench widths,
-   and the default and portable profiles at B=16 and B=256, CLI widths;
-10. a ``kernels:`` summary, the JSON kernel line, the card line, and last
+9. ms per byte step as the transcoder runs it (one segment after one of
+   warm-up), through the captured graph and through the eager step: the
+   bench speed profile at B=256 and B=1 and bench widths, and the default
+   and portable profiles at B=16 and B=256, CLI widths;
+10. the graph (``engine.make_segment_fn``: one byte step captured as a
+    CUDA graph and replayed, the default on the card, so phases 4-8 ran
+    through it): the main path's archives of phases 4 and 6 (fast and
+    portable, CLI widths) against the eager step's, byte-identical (the
+    portable one thus still the JAX package's); a dictionary replay at B=1
+    through the graph and the eager step in both profiles, the states
+    equal (integer leaves exact, floats within 2e-5); wall ms (untraced
+    and traced), device busy ms and idle share per step, graph and eager,
+    at bench widths and gates, B=256 and B=1 (``utils/profiling.py``);
+    and one bench-width segment (2048 steps x 256 lanes of bench4m.raw)
+    encoded and decoded through ``engine.make_transcoder`` with a Meter,
+    its report printed (MB/s each way);
+11. a ``kernels:`` summary, the JSON kernel line, the card line, and last
     the contract line ``{"ok": true, "device": {...}}``.
 
-Each coding path (4-8) is driven with the kernels' launch counts set to 0
-just before it and read just after; the JSON line sums them (and gives the
-routed path's, the dictionary path's and its pretraining's sums on their
-own).  Every phase prints its seconds.
+Each coding path (4-8, 10) is driven with the kernels' launch counts set
+to 0 just before it and read just after; a graph's replays count the
+launches its capture recorded (the warm-up's launches, on copies of the
+state, and the capture's host calls are not counted).  The JSON line sums
+them (and gives the routed path's, the dictionary path's and its
+pretraining's sums on their own).  Every phase prints its seconds.
 """
 
 import hashlib
@@ -77,16 +93,16 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_OPS_PER_S = 67e12           # H100 SXM, outside the tensor cores
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # The coding paths' time is their byte steps (as many as the block has
-# bytes; host-bound on the card, ~0.1-0.17 s a step on an H100 whatever the
-# lane count), the dictionary's replay (one step per byte at B=1) and the
-# CPU legs' payload bytes.  The blocks were cut from 512 and 256 to 128
-# bytes when the routed path joined, and the routed path's fast profile
-# from 512 to 256 when the dictionary path joined, to keep the whole run
-# near its earlier time.
+# bytes; a captured graph's replay on the card), the dictionary's replay
+# (one step per byte at B=1), the CPU legs' payload bytes and the graph
+# phase's eager yardsticks (0.1-0.2 s a step on an H100 whatever the lane
+# count).  The blocks were cut from 512 and 256 to 128 bytes when the
+# routed path joined, and the routed path's fast profile from 512 to 256
+# when the dictionary path joined, while every step was eager.
 # fast main path: 4 KiB of text in 128-byte blocks (one group of 32 lanes)
 MAIN_KIB, MAIN_BLOCK = 4, 128
 SMALL_BLOCK = 128               # the CPU-vs-card size check, 1 KiB
-BENCH_WARM, BENCH_STEPS = 8, 32
+BENCH_STEPS = 32
 # the DMC kernels: checked and timed at every walk depth; device times over
 # REPS launches, with COLD copies of the tables cycled (4 GiB at B=256,
 # N=16384, 16 GiB at N=65536; a launch reads ~1 MB of a young machine's
@@ -95,7 +111,13 @@ BENCH_WARM, BENCH_STEPS = 8, 32
 LEVELS = range(1, 9)
 REPS, COLD = 200, 128
 LARGE_POOLS = (32768, 65536)
-STEP_WARM, STEP_STEPS = 4, 8
+STEP_STEPS = 8
+# the graph phase: the bench-width segment (the block cut to one segment
+# of bench.py's 2048 steps), steps per profiled segment, and the bytes of
+# the dictionary that the graph-vs-eager replays replay
+BENCH_SEG = 2048
+PROFILE_STEPS = 8
+DICT_EAGER_BYTES = 600
 # the portable fixture: the JAX package's PORT=1 archive of PORT_FIXTURE,
 # made on the CPU at these small widths in one coding group
 # (tests/test_torch_port_fixture.py regenerates it and holds it equal)
@@ -578,8 +600,8 @@ def main_path(device):
     print(f"main path: {len(data)} bytes of text100k.raw, block size cut "
           f"65536 -> {MAIN_BLOCK} ({len(data) // MAIN_BLOCK} blocks in one "
           "group), CLI widths, default gates")
-    windows, _ = _round_trip("main path", data, _cli_cfg(MAIN_BLOCK),
-                             device)
+    windows, arc = _round_trip("main path", data, _cli_cfg(MAIN_BLOCK),
+                               device)
 
     # the same model on the CPU (the path the tests hold against the JAX
     # package) and on the card, at small widths: sizes agree within 2%
@@ -598,7 +620,7 @@ def main_path(device):
     print(f"small widths ({len(part)} B, {SMALL_BLOCK} B blocks): gpu "
           f"archive {len(a_gpu)} B, cpu {len(a_cpu)} B ({gap:+.4%}), gpu "
           "round trip exact")
-    return windows + [w]
+    return windows + [w], (data, _cli_cfg(MAIN_BLOCK), None, arc)
 
 
 def portable_cross_device(device, fixture=PORT_FIXTURE, archive=PORT_ARCHIVE,
@@ -659,7 +681,7 @@ def portable_cli(device):
                              f" the JAX package's {PORT_CLI_SHA256}")
     print("portable path: the card's archive is byte-identical to the JAX "
           f"package's CPU archive (sha256 {digest[:16]}...)")
-    return windows
+    return windows, (data, _cli_cfg(PORT_BLOCK), {"PORT": 1}, arc)
 
 
 def routed_path(device):
@@ -845,34 +867,36 @@ def dict_path(device):
     return windows + w2, replayed + r2
 
 
-def step_ms(device, label, env, cfg, B, warm, steps):
-    """Host-clock ms per byte step (synchronized) over ``steps`` steps on
-    bench4m.raw lanes after ``warm`` warm-up steps."""
+def step_ms(device, label, env, cfg, B, steps, graph=True):
+    """Host-clock ms per byte step (synchronized) over one segment of
+    ``steps`` steps on bench4m.raw lanes, after one segment of warm-up
+    (the graph's capture included), as the transcoder runs them:
+    ``engine.make_segment_fn``'s graph, or the eager step."""
+    import dataclasses
     import numpy as np
     import torch
     from cmix_tpu_torch import engine as E
     g = E.make_gates(env)
+    cfg = dataclasses.replace(cfg, seg_size=steps)
     raw = np.fromfile(os.path.join(ROOT, "testdata", "bench4m.raw"),
                       dtype=np.uint8).reshape(256, -1)[:B]
-    inp = torch.as_tensor(raw[:, :warm + steps].T.copy(), device=device)
-    sh = E.init_shared(cfg, g, device)
-    pb = E.init_perblock(cfg, g, B, device)
-    cd = E.init_coder(B, device)
-    comp = torch.zeros((B, cfg.comp_size), dtype=torch.uint8, device=device)
-    mode = torch.zeros(B, dtype=torch.int64, device=device)
-    step = E.make_byte_step(cfg, g, device)
+    inp = torch.as_tensor(raw[:, :2 * steps].T.copy(), device=device)
+    seg = E.make_segment_fn(cfg, g, device, graph)
     with torch.no_grad():
-        for t in range(warm):
-            sh, pb, cd, _, _ = step(sh, pb, cd, comp, inp[t], t, mode)
+        seg.start(E.init_shared(cfg, g, device),
+                  E.init_perblock(cfg, g, B, device), E.init_coder(B, device),
+                  torch.zeros((B, cfg.comp_size), dtype=torch.uint8,
+                              device=device),
+                  torch.zeros(B, dtype=torch.int64, device=device))
+        seg.run(inp[:steps])
         torch.cuda.synchronize()
         t0 = time.time()
-        for t in range(warm, warm + steps):
-            sh, pb, cd, _, _ = step(sh, pb, cd, comp, inp[t], t, mode)
+        seg.run(inp[steps:])
         torch.cuda.synchronize()
     ms = (time.time() - t0) / steps * 1e3
-    print(f"step: {label}, B={B}: {ms:.3f} ms per byte step over {steps} "
-          f"steps after {warm} warm-up -> {B / ms * 1e3 / 1e6:.6f} MB/s "
-          "one direction")
+    print(f"step: {label}, B={B}, {'graph' if graph else 'eager'}: "
+          f"{ms:.3f} ms per byte step over {steps} steps after {steps} "
+          f"warm-up -> {B / ms * 1e3 / 1e6:.6f} MB/s one direction")
     return ms
 
 
@@ -881,14 +905,174 @@ def step_times(device):
     bench = E.EngineConfig(block_size=16384, tbits=18, mbits=18, ibits=16,
                            lstm_hidden=256, seg_size=2048, dmc_nodes=16384,
                            lstm_horizon=4)
-    step_ms(device, "bench profile (bench widths and gates)",
-            E.BENCH_GATES, bench, 256, BENCH_WARM, BENCH_STEPS)
+    for B in (256, 1):
+        for graph in (True, False):
+            step_ms(device, "bench profile (bench widths and gates)",
+                    E.BENCH_GATES, bench, B, BENCH_STEPS, graph)
     cli = _cli_cfg(16384)
     for label, env in (("fast profile, default gates", {}),
                        ("portable profile, PORT=1", {"PORT": 1})):
         for B in (16, 256):
-            step_ms(device, f"{label}, CLI widths", env, cli, B, STEP_WARM,
-                    STEP_STEPS)
+            for graph in (True, False):
+                step_ms(device, f"{label}, CLI widths", env, cli, B,
+                        STEP_STEPS, graph)
+
+
+class Eager:
+    """The runner's transcoder on the eager step (``graph=False``) inside
+    the window: the graph's yardstick."""
+
+    def __enter__(self):
+        import functools
+        from cmix_tpu_torch import engine, runner
+        self.runner, self.orig = runner, runner.make_transcoder
+        runner.make_transcoder = functools.partial(engine.make_transcoder,
+                                                   graph=False)
+        return self
+
+    def __exit__(self, *exc):
+        self.runner.make_transcoder = self.orig
+
+
+def graph_vs_eager_archives(device, archives):
+    """The main path's archives (the graph's, made by the earlier phases)
+    against the eager step's at the same widths: byte-identical."""
+    from cmix_tpu_torch import runner
+    windows = []
+    for label, (data, cfg, gates, arc) in archives.items():
+        with Launches() as w, Eager():
+            t0 = time.time()
+            eager = runner.compress(data, cfg, device=device, gates=gates)
+        windows.append(w)
+        if eager != arc:
+            raise AssertionError(f"graph: {label}: the graph's archive "
+                                 f"({len(arc)} B) is not the eager step's "
+                                 f"({len(eager)} B)")
+        print(f"graph: {label}: the graph's archive is byte-identical to the "
+              f"eager step's ({len(arc)} B, sha256 "
+              f"{hashlib.sha256(arc).hexdigest()[:16]}...; eager encode "
+              f"{time.time() - t0:.2f} s, dmc_fused launches "
+              f"{w.counts['dmc_fused']})")
+    return windows
+
+
+def graph_vs_eager_replay(device):
+    """A dictionary replay (``engine.make_pretrainer``, B=1) at CLI widths
+    through the graph and through the eager step, in both profiles: the
+    states equal leaf for leaf under PORT=1, within 2e-5 in the fast
+    profile (its integer leaves exactly)."""
+    import numpy as np
+    import torch
+    from cmix_tpu_torch import engine as E
+    from cmix_tpu_torch.utils.checkpoint import _leaves
+    with open(DICT_FILE, "rb") as f:
+        data = np.frombuffer(f.read()[:DICT_EAGER_BYTES].replace(
+            b"\n", b" "), np.uint8)
+    cfg = _cli_cfg(DICT_BLOCK)
+    for label, env in (("fast", {"WRTW": 1}), ("portable", {"PORT": 1,
+                                                            "WRTW": 1})):
+        g = E.make_gates(env)
+        states, secs = [], []
+        for graph in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            states.append(dict(_leaves(E.make_pretrainer(cfg, g, device,
+                                                         graph)(
+                E.init_shared(cfg, g, device), data))))
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+        worst = 0.0
+        for name, x in states[0].items():
+            y = states[1][name]
+            if x.dtype.is_floating_point and not g.port:
+                worst = max(worst, float((x - y).abs().max()))
+            elif not torch.equal(x, y):
+                raise AssertionError(f"graph: {label} replay: {name} differs "
+                                     "from the eager replay's")
+        if worst > 2e-5:
+            raise AssertionError(f"graph: {label} replay: float leaves "
+                                 f"{worst} from the eager replay's")
+        steps = -(-len(data) // DICT_BLOCK) * DICT_BLOCK
+        print(f"graph: {label} dictionary replay ({len(data)} B, {steps} "
+              f"steps at B=1): the graph's state equals the eager replay's "
+              f"({len(states[0])} leaves, integer leaves exact, float max abs "
+              f"diff {worst}); graph {secs[0]:.2f} s "
+              f"({secs[0] / steps * 1e3:.3f} ms/step), eager {secs[1]:.2f} s "
+              f"({secs[1] / steps * 1e3:.3f} ms/step)")
+
+
+def graph_profiles():
+    """Wall ms, device busy ms and idle share per step, graph and eager, at
+    bench widths and gates, B=256 and B=1 (``utils/profiling.py``)."""
+    from cmix_tpu_torch.utils import profiling
+    rows = []
+    for batch in (256, 1):
+        for graph in (True, False):
+            r = profiling.profile_steps(batch, PROFILE_STEPS, "bench", graph)
+            rows.append(r)
+            print(f"graph: profile, bench widths and gates, B={batch}, "
+                  f"{r['step']}: wall {r['wall_ms_per_step']:.3f} ms/step "
+                  f"({r['traced_wall_ms_per_step']:.3f} traced), "
+                  f"device busy {r['device_busy_ms_per_step']:.3f} ms/step, "
+                  f"idle share {r['device_idle_share']:.4f}, host calls/step: "
+                  f"aten {r['aten_calls_per_step']:.2f}, launches "
+                  f"{r['kernel_launches_per_step']:.2f}; device kernels/step "
+                  f"{r['device_kernels_per_step']:.2f}; dmc_fused "
+                  f"{r['dmc_kernels']['dmc_fused_kernel']}")
+    return rows
+
+
+def bench_segment(device):
+    """One segment at bench widths and gates (BENCH_SEG steps x 256 lanes
+    of bench4m.raw: the block cut to one segment) encoded and decoded
+    through ``engine.make_transcoder`` with a Meter: exact, one dmc_fused
+    launch per byte step each way, and the Meter's report (MB/s)."""
+    import numpy as np
+    from cmix_tpu_torch import engine as E
+    from cmix_tpu_torch.utils.profiling import Meter
+    cfg = E.EngineConfig(block_size=BENCH_SEG, tbits=18, mbits=18, ibits=16,
+                         lstm_hidden=256, seg_size=BENCH_SEG, dmc_nodes=16384,
+                         lstm_horizon=4)
+    g = E.make_gates(E.BENCH_GATES)
+    raw = np.fromfile(os.path.join(ROOT, "testdata", "bench4m.raw"),
+                      dtype=np.uint8).reshape(256, -1)[:, :BENCH_SEG].copy()
+    trans = E.make_transcoder(cfg, g, device)
+    windows, reports = [], {}
+    comp = np.zeros((256, cfg.comp_size), np.uint8)
+    legs = (("encode", raw, E.MODE_ENCODE), ("decode", None, E.MODE_DECODE))
+    for label, inp, mode in legs:
+        meter = Meter()
+        with Launches() as w:
+            hist, out, out_len = trans(
+                E.init_shared(cfg, g, device),
+                E.init_perblock(cfg, g, 256, device),
+                np.zeros_like(raw) if inp is None else inp, comp, mode,
+                meter=meter)
+        windows.append(w)
+        if mode == E.MODE_ENCODE:
+            if np.any(out_len > cfg.comp_size):
+                raise AssertionError("bench segment: a stream overflows")
+            comp, coded = out, int(out_len.sum())
+        if w.counts["dmc_fused"] != BENCH_SEG:
+            raise AssertionError(f"bench segment {label}: dmc_fused launches "
+                                 f"{w.counts['dmc_fused']}, not {BENCH_SEG}")
+        if not np.array_equal(hist, raw):
+            raise AssertionError(f"bench segment {label}: the history is "
+                                 "not the input")
+        meter.out_bytes = coded
+        reports[label] = meter.report({"mode": label})
+        print(f"graph: bench segment ({BENCH_SEG} steps x 256 lanes of "
+              f"bench4m.raw, bench widths and gates) {label}: "
+              f"{json.dumps(reports[label])}")
+    return windows, reports
+
+
+def graph_phase(device, archives):
+    windows = graph_vs_eager_archives(device, archives)
+    graph_vs_eager_replay(device)
+    graph_profiles()
+    w, _ = bench_segment(device)
+    return windows + w
 
 
 def main():
@@ -915,14 +1099,18 @@ def main():
     phase("build", build_kernels)
     res = phase("kernels", check_dmc_kernels, device)
     phase("large pools", large_pools, device)
-    windows = phase("main path", main_path, device)
+    windows, main_arc = phase("main path", main_path, device)
     windows += phase("portable fixture", portable_cross_device, device)
-    windows += phase("portable path", portable_cli, device)
+    w, port_arc = phase("portable path", portable_cli, device)
+    windows += w
     routed = phase("routed path", routed_path, device)
     windows += routed
     dicts, replayed = phase("dict path", dict_path, device)
     windows += dicts
     phase("step times", step_times, device)
+    windows += phase("graph", graph_phase, device, {
+        "main path, fast profile": main_arc,
+        "portable path, PORT=1": port_arc})
     replaces = {"dmc_fused": "cmix_tpu/models/dmc.py:153",
                 "dmc_counts": "cmix_tpu/models/dmc.py:287"}
     kernels = []

@@ -24,9 +24,10 @@ from cmix_tpu_torch.engine import resolve_device
 _BITS32 = {"d12", "aux_tbl", "ppm", "sbank", "bank", "dmc_nxt", "dmc_cnt",
            "dmc_uXC", "dmc_uSW", "dmc_uUW"}
 # int32 leaves the port keeps as int32: kernel operands, small tables, and
-# the portable profile's integer domains of the fast profile's f32 tables
-_INT32 = {"ppm_ck", "dmc_cur", "dmc_top", "dmc_uX", "dmc_uS", "dmc_uU",
-          "d0_p", "d0_c", "match_conf", "match2_conf", "runx_conf",
+# the portable profile's integer domains of the fast profile's f32 tables,
+# and the float LSTM's Adam step count
+_INT32 = {"step", "ppm_ck", "dmc_cur", "dmc_top", "dmc_uX", "dmc_uS",
+          "dmc_uU", "d0_p", "d0_c", "match_conf", "match2_conf", "runx_conf",
           "ppm_see", "sbank_p", "w1", "bias1", "w2", "w2b", "w2c", "w2x",
           "bias2", "w3", "bias3", "apm", "w_apm"}
 # uint32 leaves held as int64 u32 values (the WRTW=2 codeword tables too)
@@ -61,8 +62,6 @@ def _tree_to_torch(tree, device, keep32=False):
         if isinstance(v, dict):
             out[k] = _tree_to_torch(v, device,
                                     keep32 or (k == "lstm" and _all_int32(v)))
-        elif k == "step":
-            out[k] = int(np.asarray(v))
         else:
             out[k] = _leaf_to_torch(k, v, device, keep32)
     return out
@@ -85,8 +84,6 @@ def from_jax_state(sh, pb, cd, device="cuda"):
 
 
 def _leaf_to_numpy(key, t, u32_tree):
-    if isinstance(t, int):
-        return np.asarray(t, dtype=np.int32)
     a = t.detach().cpu().numpy()
     if key in _BITS32:
         return a.view(np.uint32) if a.dtype == np.int32 else a

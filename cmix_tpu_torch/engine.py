@@ -46,6 +46,7 @@ Determinism on the card (encode and decode must compute the same bits):
   operator of the step writes its whole output.
 """
 
+import contextlib
 import dataclasses
 import os
 from dataclasses import dataclass
@@ -1021,7 +1022,7 @@ def _record_ctx_vals(cfg, g, C, pb, t):
     one gather at stacked offsets (mod the block, as the JAX package)."""
     rl = _record_rl(pb)
     n = cfg.block_size
-    tt = torch.full_like(rl, t)
+    tt = t.expand_as(rl)
     posr = torch.remainder(tt, torch.clamp(rl, min=1))
     offs = [tt - rl, tt - 2 * rl]
     if g.grid2:
@@ -1916,7 +1917,11 @@ def _aux_writes_b(cfg, g, sh, pb, byte, t, ind_key_prev, ind_prev_val):
 def make_byte_step(cfg: EngineConfig, g: Gates, device):
     """-> byte_step(sh, pb, cd, comp, inp_byte_b, t, mode) returning
     (sh, pb, cd, e32 (B, 8), c32 (B,)).  State dicts are updated in
-    place where that saves a copy.  t is the Python int byte index."""
+    place where that saves a copy (some leaves in place, others rebound to
+    new tensors).  t is the byte index in the block, a 0-d int64 tensor on
+    ``device`` (0 <= t < block_size): nothing in the step reads a value
+    back to the host, so a CUDA graph can capture it
+    (``make_segment_fn``)."""
     C = _Consts(g, device)
     imask = (1 << cfg.ibits) - 1
     lcfg = _lstm_cfg(cfg, g)
@@ -1968,11 +1973,12 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device):
             lerr = (byte.float() - 128.0) * (1.0 / 128.0) - lms["pred"]
             pb["lms_w"] = pb["lms_w"] + LMS_MU * lerr[:, None] * lms["xs"]
             pb["lms_err"] = 0.98 * pb["lms_err"] + 0.02 * lerr.abs()
-        pb["hist"][:, t % cfg.block_size] = byte.to(torch.uint8)
+        pb["hist"].index_copy_(1, t.view(1), byte.to(torch.uint8)[:, None])
         if g.ppm_deep:
             A = 0x01000193
             for key, w in (("h32", 32), ("h48", 48)):
-                old = pb["hist"][:, (t - w) % cfg.block_size].long()
+                old = pb["hist"].index_select(
+                    1, ((t - w) % cfg.block_size).view(1))[:, 0].long()
                 pb[key] = (mul((pb[key] - mul(old, pow(A, w - 1, 1 << 32)))
                                & M32, A) + byte) & M32
         if cfg.dmc_nodes:
@@ -1994,7 +2000,7 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device):
         pb["rec_stride"] = pb["rec_stride"].scatter(1, byte[:, None],
                                                     gap[:, None])
         pb["rec_lastpos"] = pb["rec_lastpos"].scatter(
-            1, byte[:, None], torch.full_like(gap[:, None], t))
+            1, byte[:, None], t.expand(B, 1))
 
         pb["ctx"] = update_ctx_state_batched(
             pb["ctx"], byte, g.wrtw,
@@ -2015,22 +2021,205 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device):
 # ------------------------------------------------------------ segment loop
 
 
-def make_segment_fn(cfg: EngineConfig, g: Gates, device):
-    """(sh, pb, cd, t0, inp_T, comp, mode) -> (sh, pb, cd, e32, c32):
-    a host loop of seg_size byte steps (the JAX package's lax.scan).
-    inp_T is time-major (S, B) uint8 on ``device``."""
+def _tree_copy(tree):
+    """The dict structure of ``tree`` copied; its tensors shared."""
+    return {k: _tree_copy(v) if isinstance(v, dict) else v
+            for k, v in tree.items()}
+
+
+def _tree_leaves(tree):
+    return [x for v in tree.values()
+            for x in (_tree_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def _storage(x):
+    return x.untyped_storage().data_ptr()
+
+
+def _rebound(static, new, path=""):
+    """[(static leaf, new leaf)] of every leaf the step rebound to another
+    tensor; raises if the step changed the tree's keys."""
+    if static.keys() != new.keys():
+        raise RuntimeError(f"the byte step changed the state's keys at "
+                           f"{path or 'the root'}: "
+                           f"{sorted(set(static) ^ set(new))}")
+    out = []
+    for k, s in static.items():
+        n = new[k]
+        if isinstance(s, dict):
+            out += _rebound(s, n, f"{path}{k}.")
+        elif n is not s:
+            out.append((s, n))
+    return out
+
+
+def make_static_step(cfg: EngineConfig, g: Gates, device):
+    """-> body(st): one byte step on static buffers, the callable a CUDA
+    graph captures (the JAX package's scan body).
+
+    ``st`` holds the state trees ``sh``, ``pb``, ``cd``, the group's
+    ``comp`` (B, C) uint8 and ``mode`` (B,), the segment's input rows
+    ``inp`` (S, B) uint8, its outputs ``e32`` (S, B, 8) and ``c32`` (S, B)
+    int64 and ``t``, the 0-d int64 byte index.  The body runs the byte
+    step at row t mod S on structural copies of the trees, copies every
+    leaf the step rebound back into its static leaf, writes the row's
+    outputs and advances t modulo the block, so every tensor of ``st``
+    keeps its storage from step to step."""
     step = make_byte_step(cfg, g, device)
+    row_mask, t_mask = cfg.seg_size - 1, cfg.block_size - 1
 
-    def segment(sh, pb, cd, t0, inp_T, comp, mode):
+    def body(st):
+        t = st["t"]
+        row = (t & row_mask).view(1)
+        trees = {k: _tree_copy(st[k]) for k in ("sh", "pb", "cd")}
+        sh, pb, cd, e32, c32 = step(
+            trees["sh"], trees["pb"], trees["cd"], st["comp"],
+            st["inp"].index_select(0, row)[0], t, st["mode"])
+        pairs = (_rebound(st["sh"], sh) + _rebound(st["pb"], pb)
+                 + _rebound(st["cd"], cd))
+        # a new leaf that lies in a static leaf's storage is read before
+        # any static leaf is written
+        static = {_storage(x) for x in _tree_leaves(st)}
+        news = [n.clone() if _storage(n) in static else n for _, n in pairs]
+        for (s, _), n in zip(pairs, news):
+            s.copy_(n)
+        st["e32"].index_copy_(0, row, e32[None])
+        st["c32"].index_copy_(0, row, c32[None])
+        t.copy_((t + 1) & t_mask)
+
+    return body
+
+
+class _Segments:
+    """A coding group's segments, run the JAX package's way: one compiled
+    program replayed.  On CUDA (``graph``) the byte step over static
+    buffers (``make_static_step``) is captured once into a
+    ``torch.cuda.CUDAGraph`` and replayed seg_size times per segment; a
+    later group of the same width copies its state into the buffers.
+    Elsewhere, or with ``graph=False``, the eager step runs in a Python
+    loop with a device t."""
+
+    def __init__(self, cfg: EngineConfig, g: Gates, device, graph):
+        self.cfg, self.device = cfg, device
+        self.graph = graph and device.type == "cuda"
+        if self.graph:
+            self.body = make_static_step(cfg, g, device)
+        else:
+            self.step = make_byte_step(cfg, g, device)
+            self.ts = torch.arange(cfg.block_size, device=device)
+        self.st = self._g = None
+        self.per_replay = None          # kernel launches one replay makes
+
+    @property
+    def ready(self):
+        """Whether ``start`` is past its set-up (the graph captured)."""
+        return self.st is not None
+
+    def start(self, sh, pb, cd, comp, mode):
+        """A group begins at byte 0 from this state.  The graph's first
+        group lends its tensors to the static buffers and is captured
+        (warm-up and capture); a later group is copied in."""
+        if not self.graph:
+            self.st = dict(sh=sh, pb=pb, cd=cd, comp=comp, mode=mode, t=0)
+            return
+        new = dict(sh=sh, pb=pb, cd=cd, comp=comp, mode=mode)
+        if self._g is None:
+            S, B = self.cfg.seg_size, comp.shape[0]
+            self.st = dict(
+                {k: _tree_copy(v) if isinstance(v, dict) else v
+                 for k, v in new.items()},
+                inp=torch.zeros((S, B), dtype=torch.uint8, device=self.device),
+                e32=torch.zeros((S, B, 8), dtype=torch.int64,
+                                device=self.device),
+                c32=torch.zeros((S, B), dtype=torch.int64, device=self.device),
+                t=torch.zeros((), dtype=torch.int64, device=self.device))
+            self._capture()
+            return
+        for k, v in new.items():
+            pairs = (_rebound(self.st[k], v) if isinstance(v, dict)
+                     else [(self.st[k], v)])
+            for s, n in pairs:
+                if s.shape != n.shape:
+                    raise ValueError(f"group state {k}: {tuple(n.shape)} "
+                                     f"where the graph has {tuple(s.shape)}")
+                s.copy_(n)
+        self.st["t"].zero_()
+
+    def _capture(self):
+        """Warm up on copies of the state (on a side stream, as the CUDA
+        graphs notes ask; the first run fills the lazy device tables and
+        loads the kernel library, the second must not synchronise with the
+        host: an operator that does raises, naming itself), then capture
+        one step on the static buffers.  The capture runs nothing: the
+        state is as the group handed it in.  The kernel launches of the
+        warm-up (on copies) and of the capture are taken back out of the
+        launch counts; each replay adds what the capture recorded."""
+        from cmix_tpu_torch.utils.checkpoint import clone_state
+        dev = self.device
+        before = dmc.launch_counts()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for strict in (False, True):
+                warm = clone_state(self.st)
+                prev = torch.cuda.get_sync_debug_mode()
+                if strict:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    self.body(warm)
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+                del warm
+        torch.cuda.current_stream(dev).wait_stream(side)
+        warmed = dmc.launch_counts()
+        self._g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self._g):
+            self.body(self.st)
+        now = dmc.launch_counts()
+        self.per_replay = [a - b for a, b in zip(now, warmed)]
+        dmc.add_launches([a - b for a, b in zip(now, before)], -1)
+
+    def run(self, inp_seg, outputs=True):
+        """Enqueue one segment on its input rows ``inp_seg`` (S, B) uint8
+        -> (e32 (S, B, 8), c32 (S, B)) int64 on the device (the graph's
+        static buffers: read them before the next ``run``), or None
+        without ``outputs`` (the eager loop then keeps none)."""
+        S = self.cfg.seg_size
+        if self.graph:
+            self.st["inp"].copy_(inp_seg)
+            for _ in range(S):
+                self._g.replay()
+            dmc.add_launches(self.per_replay, S)
+            return (self.st["e32"], self.st["c32"]) if outputs else None
+        st = self.st
+        sh, pb, cd, t = st["sh"], st["pb"], st["cd"], st["t"]
         e32s, c32s = [], []
-        for s in range(cfg.seg_size):
-            sh, pb, cd, e32, c32 = step(sh, pb, cd, comp, inp_T[s], t0 + s,
-                                        mode)
-            e32s.append(e32)
-            c32s.append(c32)
-        return sh, pb, cd, torch.stack(e32s), torch.stack(c32s)
+        for s in range(S):
+            sh, pb, cd, e32, c32 = self.step(sh, pb, cd, st["comp"],
+                                             inp_seg[s], self.ts[t],
+                                             st["mode"])
+            t = (t + 1) % self.cfg.block_size
+            if outputs:
+                e32s.append(e32)
+                c32s.append(c32)
+        st.update(sh=sh, pb=pb, cd=cd, t=t)
+        return (torch.stack(e32s), torch.stack(c32s)) if outputs else None
 
-    return segment
+    def state(self):
+        """(sh, pb, cd) after the segments run so far."""
+        return self.st["sh"], self.st["pb"], self.st["cd"]
+
+
+def make_segment_fn(cfg: EngineConfig, g: Gates, device, graph=True):
+    """The port's ``jax.jit`` of the JAX package's segment scan: an object
+    whose ``start(sh, pb, cd, comp, mode)`` begins a coding group and whose
+    ``run(inp_seg)`` enqueues one segment of seg_size byte steps on its
+    time-major (S, B) uint8 input rows and returns (e32 (S, B, 8), c32
+    (S, B)).  On CUDA one byte step is captured as a CUDA graph and
+    replayed (a failed capture raises: there is no fallback); the eager
+    step runs there only when asked (``graph=False``), and always on the
+    CPU."""
+    return _Segments(cfg, g, device, graph)
 
 
 def make_seg_compactor(cfg: EngineConfig):
@@ -2062,20 +2251,46 @@ def make_seg_compactor(cfg: EngineConfig):
 # --------------------------------------------------------------- transcoder
 
 
-def make_transcoder(cfg: EngineConfig, g: Gates, device):
-    """``transcode(sh, pb, inp, comp, mode)
+def make_transcoder(cfg: EngineConfig, g: Gates, device, graph=True):
+    """``transcode(sh, pb, inp, comp, mode, meter=None, progress=None)
     -> (hist, out, out_len)`` as numpy arrays.
 
     encode: inp (B, N) uint8 padded blocks, comp zeros -> compressed.
     decode: comp (B, comp_size) streams, inp zeros -> hist are the bytes.
     mode: scalar or per-lane (B,) -- a decode group mirrors its encode
-    group, with raw-stored and padding lanes re-fed in encode mode."""
-    seg_fn = make_segment_fn(cfg, g, device)
-    compact = make_seg_compactor(cfg)
+    group, with raw-stored and padding lanes re-fed in encode mode.
 
-    def transcode(sh, pb, inp, comp, mode):
+    The segments run through ``make_segment_fn`` (on CUDA a captured graph
+    per group width, kept across groups; ``graph=False`` asks for the eager
+    step) in the JAX package's one-segment pipeline: segment si+1 is
+    enqueued before the host compacts segment si, whose outputs a
+    non-blocking copy into pinned memory, ordered on the stream before
+    si+1 overwrites them, brings to the host.  meter: a
+    ``utils.profiling.Meter`` (phases ``compile``: the graph's warm-up
+    and capture, at the first group of a width; ``device``: the segments,
+    a later group's copy into the graph, and the waits on the device;
+    ``host``: the compaction); progress: a callable of the bytes done."""
+    compact = make_seg_compactor(cfg)
+    segs = {}
+    S = cfg.seg_size
+    cuda = device.type == "cuda"
+
+    def transcode(sh, pb, inp, comp, mode, meter=None, progress=None):
+        ph = meter.phase if meter else (lambda _: contextlib.nullcontext())
+        b = int(inp.shape[0])
+        parts = [[] for _ in range(b)]
+
+        def drain(pend):
+            ev, e32, c32 = pend
+            with ph("device"):
+                if ev is not None:
+                    ev.synchronize()
+            with ph("host"):
+                seg_out, seg_len = compact(e32.numpy(), c32.numpy())
+                for i in range(b):
+                    parts[i].append(seg_out[i, :seg_len[i]].tobytes())
+
         with torch.no_grad():
-            b = int(inp.shape[0])
             cd = init_coder(b, device)
             comp = torch.as_tensor(np.asarray(comp), device=device)
             mode = torch.as_tensor(np.broadcast_to(
@@ -2088,15 +2303,38 @@ def make_transcoder(cfg: EngineConfig, g: Gates, device):
             cd["rptr"] = torch.where(mode == MODE_DECODE, 4, 0)
             inp_T = torch.as_tensor(np.ascontiguousarray(
                 np.asarray(inp).T), device=device)
-            parts = [[] for _ in range(b)]
-            for si in range(cfg.block_size // cfg.seg_size):
-                lo = si * cfg.seg_size
-                sh, pb, cd, e32, c32 = seg_fn(
-                    sh, pb, cd, lo, inp_T[lo:lo + cfg.seg_size], comp, mode)
-                seg_out, seg_len = compact(e32.cpu().numpy(),
-                                           c32.cpu().numpy())
-                for i in range(b):
-                    parts[i].append(seg_out[i, :seg_len[i]].tobytes())
+            if b not in segs:
+                segs[b] = make_segment_fn(cfg, g, device, graph)
+            seg = segs[b]
+            host = [tuple(torch.empty(shape, dtype=torch.int64,
+                                      pin_memory=True)
+                          for shape in ((S, b, 8), (S, b)))
+                    for _ in range(2)] if cuda else None
+            with ph("device" if seg.ready else "compile"):
+                seg.start(sh, pb, cd, comp, mode)
+            pending = None
+            for si in range(cfg.block_size // S):
+                lo = si * S
+                with ph("device"):
+                    e32, c32 = seg.run(inp_T[lo:lo + S])
+                    if cuda:
+                        he, hc = host[si % 2]
+                        he.copy_(e32, non_blocking=True)
+                        hc.copy_(c32, non_blocking=True)
+                        ev = torch.cuda.Event()
+                        ev.record()
+                        done = (ev, he, hc)
+                    else:
+                        done = (None, e32, c32)
+                if pending is not None:
+                    drain(pending)
+                pending = done
+                if meter:
+                    meter.add_segment(b * S)
+                if progress:
+                    progress((si + 1) * S * b)
+            drain(pending)
+            _, pb, cd = seg.state()
             x1 = cd["x1"].cpu().numpy()
             hist = pb["hist"].cpu().numpy()
         out = np.zeros((b, cfg.comp_size), dtype=np.uint8)
@@ -2115,18 +2353,20 @@ def make_transcoder(cfg: EngineConfig, g: Gates, device):
 # ------------------------------------------------------------- pretraining
 
 
-def make_pretrainer(cfg: EngineConfig, g: Gates, device):
+def make_pretrainer(cfg: EngineConfig, g: Gates, device, graph=True):
     """``(sh, data) -> sh``: replays a training stream (uint8) through the
-    full model update at B=1 in encode mode, starting from ``sh`` (updated
-    in place), and throws away the positional state and the coder (cf.
-    cmix_tpu/engine.py make_pretrainer).  The stream is padded with spaces
-    to whole segments of ``PRETRAIN_SEG`` bytes, clamped to the block size
-    as every ``EngineConfig`` clamps its segment; byte i runs at position
-    i mod block_size (the JAX package's t0 = (si * s) mod block_size of
-    segment si).  After the replay the match region of ``aux_tbl`` is
-    zeroed: its entries point into the discarded history."""
+    full model update at B=1 in encode mode, starting from ``sh`` (its
+    tensors updated in place), and throws away the positional state and
+    the coder (cf. cmix_tpu/engine.py make_pretrainer).  The stream is
+    padded with spaces to whole segments of ``PRETRAIN_SEG`` bytes,
+    clamped to the block size as every ``EngineConfig`` clamps its
+    segment; byte i runs at position i mod block_size (the JAX package's
+    t0 = (si * s) mod block_size of segment si).  The segments run through
+    ``make_segment_fn`` (on CUDA one captured graph at B=1; ``graph=False``
+    asks for the eager step).  After the replay the match region of
+    ``aux_tbl`` is zeroed: its entries point into the discarded
+    history."""
     pcfg = dataclasses.replace(cfg, seg_size=PRETRAIN_SEG)
-    step = make_byte_step(pcfg, g, device)
 
     def pretrain(sh, data):
         data = np.asarray(data, dtype=np.uint8)
@@ -2134,14 +2374,15 @@ def make_pretrainer(cfg: EngineConfig, g: Gates, device):
         pad = np.full(-(-len(data) // s) * s, 32, dtype=np.uint8)
         pad[:len(data)] = data
         inp = torch.as_tensor(pad[:, None].copy(), device=device)
-        pb = init_perblock(pcfg, g, 1, device)
-        cd = init_coder(1, device)
-        comp = torch.zeros((1, 8), dtype=torch.uint8, device=device)
-        mode = torch.zeros(1, dtype=torch.int64, device=device)
         with torch.no_grad():
-            for i in range(len(pad)):
-                sh, pb, cd, _, _ = step(sh, pb, cd, comp, inp[i],
-                                        i % pcfg.block_size, mode)
+            seg = make_segment_fn(pcfg, g, device, graph)
+            seg.start(sh, init_perblock(pcfg, g, 1, device),
+                      init_coder(1, device),
+                      torch.zeros((1, 8), dtype=torch.uint8, device=device),
+                      torch.zeros(1, dtype=torch.int64, device=device))
+            for lo in range(0, len(pad), s):
+                seg.run(inp[lo:lo + s], outputs=False)
+            sh = seg.state()[0]
             sh["aux_tbl"][:2 * g.n_match * (1 << pcfg.mbits)] = 0
         return sh
 

@@ -130,7 +130,7 @@ def init_lstm_shared(cfg: LstmConfig, device, seed: int = 0x1234):
     params = {k: torch.as_tensor(v, device=device) for k, v in params.items()}
     opt = {"m": {k: torch.zeros_like(v) for k, v in params.items()},
            "v": {k: torch.zeros_like(v) for k, v in params.items()},
-           "step": 0}
+           "step": torch.zeros((), dtype=torch.int32, device=device)}
     return {"params": params, "opt": opt}
 
 
@@ -179,6 +179,42 @@ def _logits_b(params, h):
     return h.reshape(h.shape[0], -1) @ params["wo"] + params["bo"][None]
 
 
+# Adam's bias corrections 1 - beta^t stop changing in float32 once beta^t
+# is below half an ulp of 1: from t = 165 for beta1 = 0.9, t = 17321 for
+# beta2 = 0.999 (numpy float32 pow; tests/test_torch_graph_adam.py)
+BC_STEPS = 17321
+_BC = {}
+
+
+def bias_correction(beta, t):
+    """``1 - beta**t`` as numpy's float32 scalar pow rounds it."""
+    f32 = np.float32
+    return f32(1) - f32(beta) ** f32(t)
+
+
+def bias_table(cfg: LstmConfig, device):
+    """(BC_STEPS, 2) float32 table of Adam's bias corrections
+    ``1 - beta1**t``, ``1 - beta2**t`` for t = 1..BC_STEPS, computed once
+    with numpy's float32 pow and kept on ``device``.  The step reads it
+    with the step count clamped at BC_STEPS, so the corrections are device
+    values (a captured step replays them) with the host's rounding."""
+    key = (cfg.beta1, cfg.beta2, str(device))
+    if key not in _BC:
+        _BC[key] = torch.as_tensor(np.array(
+            [[bias_correction(b, t) for b in (cfg.beta1, cfg.beta2)]
+             for t in range(1, BC_STEPS + 1)], dtype=np.float32),
+            device=device)
+    return _BC[key]
+
+
+def bias_corrections(cfg: LstmConfig, step):
+    """(bc1, bc2) 0-d float32 tensors for the 0-d int32 step count."""
+    tbl = bias_table(cfg, step.device)
+    i = (torch.clamp(step, max=BC_STEPS) - 1).long().view(1)
+    bc = tbl.index_select(0, i)[0]
+    return bc[0], bc[1]
+
+
 def lstm_shared_byte_update(cfg: LstmConfig, sh, pb, bytes_b):
     """One Adam step on the shared params from the horizon-replayed loss,
     then advance every block and cache next-byte distributions.
@@ -199,11 +235,7 @@ def lstm_shared_byte_update(cfg: LstmConfig, sh, pb, bytes_b):
         grads = torch.autograd.grad(loss, [p[k] for k in keys])
 
     step = opt["step"] + 1
-    # bias corrections as f32 host scalars: no host-to-device copy (and
-    # stream sync) per byte
-    f32 = np.float32
-    bc1 = float(f32(1) - f32(cfg.beta1) ** f32(step))
-    bc2 = float(f32(1) - f32(cfg.beta2) ** f32(step))
+    bc1, bc2 = bias_corrections(cfg, step)
     new_p, new_m, new_v = {}, {}, {}
     for k, g in zip(keys, grads):
         g = torch.clamp(g, -10.0, 10.0)

@@ -206,6 +206,24 @@ def counts_walk(nxt, cnt, cur, levels):
 counts_walk.launches = 0
 
 
+# the kernel wrappers, each counting its launches in ``.launches``
+WRAPPERS = (fused_apply_walk, counts_walk)
+
+
+def launch_counts():
+    """[launches] of each wrapper of ``WRAPPERS``."""
+    return [w.launches for w in WRAPPERS]
+
+
+def add_launches(counts, times=1):
+    """Add ``times`` x ``counts`` (one entry per wrapper) to the launch
+    counts.  A CUDA graph's replay launches what its capture recorded
+    without calling a wrapper: the graph adds the launches its capture
+    counted once per replay (``engine.make_segment_fn``)."""
+    for w, n in zip(WRAPPERS, counts):
+        w.launches += n * times
+
+
 # ------------------------------------------------------------ model API
 
 

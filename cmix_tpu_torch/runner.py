@@ -26,8 +26,12 @@ file.  A portable archive is byte-identical to the JAX package's and
 decodes on either package and any device.  ``--resume`` raises
 NotImplementedError naming the ROADMAP.md item that will port it.
 
+On the card the segments run as a captured CUDA graph of the byte step
+(``engine.make_segment_fn``), the port's ``jax.jit`` of the JAX package's
+segment scan.
+
     python -m cmix_tpu_torch.runner c|d|t INPUT OUTPUT [--portable]
-        [--dict PATH|auto] [--device cpu]
+        [--dict PATH|auto] [--device cpu] [--stats] [--profile DIR]
 """
 
 import argparse
@@ -170,6 +174,20 @@ def _group_state(cfg, g, b, vforce, device, fields, lo, real, base=None):
     return sh, pb
 
 
+def _ticker(show, total):
+    from cmix_tpu_torch.utils.profiling import Progress
+    return Progress(total, "progress") if show else None
+
+
+def _progress(ticker, done, frac=1.0):
+    """The transcoder's progress callback for a group starting at ``done``
+    bytes, whose real lanes are ``frac`` of its lanes (the JAX runner's
+    count), or None without a ticker."""
+    if ticker is None:
+        return None
+    return lambda d: ticker.update(done + int(d * frac))
+
+
 def _seg_table(seg_meta):
     parts = [struct.pack("<I", len(seg_meta))]
     for e in seg_meta:
@@ -209,7 +227,8 @@ def _read_seg_table(archive, off):
 
 def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
              max_batch: int = 64, dictionary: str = None, gates=None,
-             device="cuda", resume_path=None) -> bytes:
+             device="cuda", resume_path=None, meter=None,
+             show_progress=False) -> bytes:
     """Compress ``data`` into a TCMX archive.
 
     dictionary: path of a word list ("auto": AUTO_DICT); enables the WRT
@@ -217,7 +236,9 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
     gates: mapping of gate name -> value (missing = default); the port
     accepts the defaults, ``engine.BENCH_GATES``, and PORT=1 (with any
     ILSTM_LRX/ILSTM_ADAM) on top of the defaults.  The content-routed
-    gates are then set from the content, whatever the caller gave."""
+    gates are then set from the content, whatever the caller gave.
+    meter: a ``utils.profiling.Meter`` the transcoder's phases feed;
+    show_progress: a percentage ticker on stderr."""
     if resume_path is not None:
         raise NotImplementedError(
             f"--resume is not ported to cmix_tpu_torch yet ({_LATER_RESUME})")
@@ -251,6 +272,7 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
     vocab = _vocab_bitmap(payload)
     vforce = _vocab_force(vocab)
     fields = _block_fields(seg_meta, nb, n)
+    ticker = _ticker(show_progress, nb * n)
     streams = []
     for lo in range(0, nb, eb):
         batch = blocks[lo:lo + eb]
@@ -261,7 +283,8 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
         sh, pb = _group_state(cfg, g, eb, vforce, dev, fields, lo, b, base)
         _, out, out_len = trans(sh, pb, batch,
                                 np.zeros((eb, cfg.comp_size), np.uint8),
-                                MODE_ENCODE)
+                                MODE_ENCODE, meter=meter,
+                                progress=_progress(ticker, lo * n, b / eb))
         for i in range(b):
             L = int(out_len[i])
             if L >= n:                       # incompressible: store raw
@@ -283,12 +306,13 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
     return header + segtbl + lens + b"".join(s for _, s in streams)
 
 
-def decompress(archive: bytes, dictionary: str = None,
-               device="cuda") -> bytes:
+def decompress(archive: bytes, dictionary: str = None, device="cuda",
+               meter=None, show_progress=False) -> bytes:
     """Decode a TCMX archive.  The archive's gate record and header pin
     the ensemble and the exec batch; malformed input raises FormatError,
     and so does an archive coded with a dictionary when ``dictionary`` is
-    not that file (it is ignored for an archive coded without one)."""
+    not that file (it is ignored for an archive coded without one).
+    meter, show_progress: as for ``compress``."""
     if len(archive) < 4 + _HDR_LEN + 2:
         raise FormatError("truncated archive (shorter than the header)")
     if archive[:4] != MAGIC:
@@ -344,6 +368,7 @@ def decompress(archive: bytes, dictionary: str = None,
     trans = make_transcoder(cfg, g, dev)
     vforce = _vocab_force(vocab)
     fields = _block_fields(seg_meta, nb, n)
+    ticker = _ticker(show_progress, nb * n)
     out_parts = [None] * nb
     for lo in range(0, nb, eb):
         group = streams[lo:lo + eb]
@@ -358,7 +383,9 @@ def decompress(archive: bytes, dictionary: str = None,
                 modes[j] = MODE_DECODE
         sh, pb = _group_state(cfg, g, eb, vforce, dev, fields, lo,
                               len(group), base)
-        hist, _, _ = trans(sh, pb, inp, comp, modes)
+        hist, _, _ = trans(sh, pb, inp, comp, modes, meter=meter,
+                           progress=_progress(ticker, lo * n,
+                                              len(group) / eb))
         for j, (raw, s) in enumerate(group):
             out_parts[lo + j] = s if raw else bytes(hist[j].tobytes())
     payload = b"".join(out_parts)[:payload_len]
@@ -400,11 +427,18 @@ def main(argv=None):
                     help="where the model runs (cpu only when asked)")
     ap.add_argument("--resume", default=None, metavar="JOURNAL",
                     help="failure-recovery journal (not ported yet: raises)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace (Chrome trace "
+                    "format) to DIR/trace.json")
+    ap.add_argument("--stats", action="store_true",
+                    help="print a JSON phase/throughput report to stderr")
     ap.add_argument("--portable", action="store_true",
                     help="portable profile (PORT=1): integer model math, "
                     "archives decode bit-exactly on any device and with "
                     "the JAX package")
     args = ap.parse_args(argv)
+    from cmix_tpu_torch.utils.profiling import Meter, trace
+    meter = Meter() if (args.stats or args.profile) else None
     with open(args.input, "rb") as f:
         data = f.read()
     t0 = time.time()
@@ -414,10 +448,16 @@ def main(argv=None):
         cfg = EngineConfig(block_size=args.block_size, tbits=args.tbits,
                            lstm_hidden=args.lstm, dmc_nodes=args.dmc,
                            lstm_horizon=horizon)
-        out = compress(data, cfg, max_batch=args.max_batch,
-                       dictionary=args.dictionary,
-                       gates={"PORT": 1} if args.portable else None,
-                       device=args.device, resume_path=args.resume)
+        with trace(args.profile):
+            out = compress(data, cfg, max_batch=args.max_batch,
+                           dictionary=args.dictionary,
+                           gates={"PORT": 1} if args.portable else None,
+                           device=args.device, resume_path=args.resume,
+                           meter=meter, show_progress=True)
+        if meter:
+            meter.out_bytes = len(out)
+            meter.bytes = len(data)
+            meter.print_report(mode="compress")
         if args.mode == "t":
             back = decompress(out, dictionary=args.dictionary,
                               device=args.device)
@@ -429,8 +469,14 @@ def main(argv=None):
               f"{time.time() - t0:.2f} s")
         print(f"cross entropy: {bpb:.4f}")
     else:
-        out = decompress(data, dictionary=args.dictionary,
-                         device=args.device)
+        with trace(args.profile):
+            out = decompress(data, dictionary=args.dictionary,
+                             device=args.device, meter=meter,
+                             show_progress=True)
+        if meter:
+            meter.out_bytes = len(data)
+            meter.bytes = len(out)
+            meter.print_report(mode="decompress")
         with open(args.output, "wb") as f:
             f.write(out)
         print(f"{len(data)} bytes -> {len(out)} bytes in "

@@ -30,26 +30,21 @@ def _leaves(tree, pre=""):
 
 
 def _spec(leaf):
-    """(shape, dtype name) of a tensor leaf or a Python int (the LSTM's
-    optimizer step)."""
-    if isinstance(leaf, int):
-        return (), "int64"
+    """(shape, dtype name) of a tensor leaf."""
     return tuple(leaf.shape), str(leaf.dtype).replace("torch.", "")
 
 
 def clone_state(tree):
     """A deep copy: every tensor cloned, so the copy can be updated in place
     while ``tree`` stays as it is."""
-    return {k: clone_state(v) if isinstance(v, dict)
-            else v.clone() if torch.is_tensor(v) else v
+    return {k: clone_state(v) if isinstance(v, dict) else v.clone()
             for k, v in tree.items()}
 
 
 def save_state(path, state):
     """Write ``state``'s leaves to ``path`` (.npz), atomically."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    arrays = {name: np.asarray(v, dtype=np.int64) if isinstance(v, int)
-              else v.detach().cpu().numpy() for name, v in _leaves(state)}
+    arrays = {name: v.detach().cpu().numpy() for name, v in _leaves(state)}
     tmp = f"{path}.{os.getpid()}.tmp.npz"
     np.savez(tmp, **arrays)
     os.replace(tmp, path)
@@ -77,8 +72,7 @@ def load_state(path, like):
                 raise ValueError(f"checkpoint {path}: {name} is "
                                  f"{a.shape}/{a.dtype}, the state's "
                                  f"{_spec(v)}")
-            out[k] = (int(a) if isinstance(v, int)
-                      else torch.as_tensor(a, device=v.device))
+            out[k] = torch.as_tensor(a, device=v.device)
         return out
 
     return fill(like)

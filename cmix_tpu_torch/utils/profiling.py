@@ -1,35 +1,143 @@
-"""Where a byte step's time goes on the GPU (torch.profiler).
+"""Tracing, metering and progress (the CLI's ``--profile``/``--stats``),
+and where a byte step's time goes on the GPU.
+
+Port of cmix_tpu/utils/profiling.py (``trace``, ``Meter``, ``Progress``):
+
+* ``trace(dir)``: a ``torch.profiler`` trace (CPU, and CUDA where there is
+  a card) written into ``dir`` as a Chrome trace (``--profile DIR``);
+* ``Meter``: per-phase wall time and bytes, the one-line JSON report
+  (``--stats``) with the JAX package's keys; the transcoder waits on the
+  device inside its ``device`` phase, where the JAX package's
+  ``np.asarray`` blocks;
+* ``Progress``: the rate-limited percentage ticker on stderr.
+
+The byte-step profiler (not in the JAX package):
 
     python -m cmix_tpu_torch.utils.profiling [--batch 256] [--steps 8]
         [--gates bench|bench-x86|default|routed|portable|wrtw]
 
-Builds the byte step of the bench speed profile (bench widths, the blocks
+runs the byte step of the bench speed profile (bench widths, the blocks
 of ``testdata/bench4m.raw``), or of another gate set at the same widths:
 the bench set with X86X=2 (what the runner routes for bench4m.raw, whose
 detector finds x86 code), the default gates, the default gates with the
 media and JPEG routes (GRID2=1, LMS=2, JPEGX=1; every block marked as
 24-bit image, so the LMS votes), the portable profile (PORT=1 on the
 default gates), or the default gates with WRTW=1 (what the runner routes
-for a dictionary-coded archive: the WRT codeword tracker); warms it up, then traces ``--steps`` steps with CPU and
-CUDA activities and
-prints one JSON line: wall ms per step (host clock, synchronised), device
-busy ms per step (the sum of kernel and copy times on the one stream) and
-the idle share, kernel launches and operator calls per step, the top
-operators by host time and the top kernels by device time, and always
-the two DMC kernels' launches and device ms per step (``dmc_kernels``,
-zero where the step launched none).  Needs a CUDA
-device; the numbers are the card's, printed beside its name.
+for a dictionary-coded archive: the WRT codeword tracker), as the
+transcoder runs it: ``engine.make_segment_fn``'s captured CUDA graph, then
+the eager step (``graph=False``).  Each runs one segment of ``--steps``
+steps to warm up (the graph's capture included), times one more on the
+host clock (synchronised), then traces a third with CPU and CUDA
+activities (the tracer slows the host and the graph's launches, so the
+traced wall is printed apart) and prints one JSON line: wall ms per step,
+device busy ms per step (the sum of the device's kernel, copy and fill
+times on the one stream, from the trace) and the idle share (1 - busy /
+untraced wall), host operator calls and kernel launches per step,
+kernels run on the device per step, the top operators by host time and
+the top kernels by device time, and always the two DMC kernels' launches
+and device ms per step (``dmc_kernels``, zero where the step launched
+none).  Needs a CUDA device; the numbers are the card's, printed beside
+its name.
 """
 
 import argparse
+import contextlib
 import json
 import os
+import sys
 import time
 
 import numpy as np
 import torch
 
 from cmix_tpu_torch import engine as E
+
+
+@contextlib.contextmanager
+def trace(log_dir):
+    """A torch.profiler trace written to ``log_dir`` as a Chrome trace
+    (``trace.json``; no-op when log_dir is falsy)."""
+    if not log_dir:
+        yield
+        return
+    act = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        act.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=act) as prof:
+        yield
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class Meter:
+    """Accumulates per-phase wall time + processed bytes.
+
+    phases: 'compile' (the graph's warm-up and capture), 'device' (the
+    segments and the waits on the device), 'host' (compaction).  Report:
+    MB/s overall and device-only."""
+
+    def __init__(self):
+        self.t = {}
+        self.bytes = 0
+        self.out_bytes = 0
+        self.segments = 0
+
+    @contextlib.contextmanager
+    def phase(self, name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.t[name] = self.t.get(name, 0.0) + time.perf_counter() - t0
+
+    def add_segment(self, n_bytes):
+        self.segments += 1
+        self.bytes += n_bytes
+
+    def report(self, extra=None):
+        total = sum(self.t.values())
+        dev = self.t.get("device", 0.0)
+        r = {
+            "bytes": self.bytes,
+            "out_bytes": self.out_bytes,
+            "segments": self.segments,
+            "wall_s": round(total, 3),
+            "phases_s": {k: round(v, 3) for k, v in self.t.items()},
+            "mb_s": round(self.bytes / max(total, 1e-9) / 2**20, 5),
+            "device_mb_s": round(self.bytes / max(dev, 1e-9) / 2**20, 5),
+        }
+        if self.bytes and self.out_bytes:
+            r["bpb"] = round(8.0 * self.out_bytes / self.bytes, 4)
+        if extra:
+            r.update(extra)
+        return r
+
+    def print_report(self, **extra):
+        print(json.dumps(self.report(extra or None)), file=sys.stderr,
+              flush=True)
+
+
+class Progress:
+    """Rate-limited progress ticker (cf. runner.cpp:111-115)."""
+
+    def __init__(self, total, label="progress", interval=0.5):
+        self.total = max(total, 1)
+        self.label = label
+        self.interval = interval
+        self._last = 0.0
+
+    def update(self, done):
+        now = time.time()
+        if now - self._last >= self.interval or done >= self.total:
+            self._last = now
+            pct = 100.0 * done / self.total
+            print(f"\r{self.label}: {pct:.2f}%", end="",
+                  file=sys.stderr, flush=True)
+            if done >= self.total:
+                print(file=sys.stderr)
+
+
+# ------------------------------------------------- the byte-step profiler
 
 # the device functions of csrc/dmc_fused.cu and csrc/dmc_counts.cu, found
 # by name among the profiler's events
@@ -40,6 +148,8 @@ GATE_SETS = {"bench": E.BENCH_GATES,
              "routed": {"GRID2": 1, "LMS": 2, "JPEGX": 1},
              "portable": {"PORT": 1},
              "wrtw": {"WRTW": 1}}
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                 "cudaGraphLaunch")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -49,58 +159,77 @@ def _dev_us(evt):
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def profile_steps(batch=256, warm=4, steps=8, gates="bench"):
+def _on_device(evt):
+    return str(getattr(evt, "device_type", "")).endswith("CUDA")
+
+
+def profile_steps(batch=256, steps=8, gates="bench", graph=True):
+    """Profile ``steps`` byte steps at bench widths as the transcoder runs
+    them (one segment of ``steps`` after one of warm-up, timed, then one
+    traced) -> the JSON-ready dict the module's docstring lists."""
     dev = E.resolve_device("cuda")
     g = E.make_gates(GATE_SETS[gates])
     cfg = E.EngineConfig(block_size=16384, tbits=18, mbits=18, ibits=16,
-                         lstm_hidden=256, seg_size=2048, dmc_nodes=16384,
+                         lstm_hidden=256, seg_size=steps, dmc_nodes=16384,
                          lstm_horizon=4)
     raw = np.fromfile(os.path.join(_ROOT, "testdata", "bench4m.raw"),
                       dtype=np.uint8)
     lanes = raw[:batch * (len(raw) // batch)].reshape(batch, -1)
-    inp = torch.as_tensor(lanes[:, :warm + steps].T.copy(), device=dev)
-    sh = E.init_shared(cfg, g, dev)
+    inp = torch.as_tensor(lanes[:, :3 * steps].T.copy(), device=dev)
     pb = E.init_perblock(cfg, g, batch, dev)
     if g.lms:
         pb["blk_kind"].fill_(3)
-    cd = E.init_coder(batch, dev)
-    comp = torch.zeros((batch, cfg.comp_size), dtype=torch.uint8, device=dev)
-    mode = torch.zeros(batch, dtype=torch.int64, device=dev)
-    step = E.make_byte_step(cfg, g, dev)
+    seg = E.make_segment_fn(cfg, g, dev, graph)
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     with torch.no_grad():
-        for t in range(warm):
-            sh, pb, cd, _, _ = step(sh, pb, cd, comp, inp[t], t, mode)
+        t0 = time.time()
+        seg.start(E.init_shared(cfg, g, dev), pb, E.init_coder(batch, dev),
+                  torch.zeros((batch, cfg.comp_size), dtype=torch.uint8,
+                              device=dev),
+                  torch.zeros(batch, dtype=torch.int64, device=dev))
+        seg.run(inp[:steps])
         torch.cuda.synchronize()
+        warm_s = time.time() - t0
+        t0 = time.time()
+        seg.run(inp[steps:2 * steps])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
         with torch.profiler.profile(activities=act) as prof:
             t0 = time.time()
-            for t in range(warm, warm + steps):
-                sh, pb, cd, _, _ = step(sh, pb, cd, comp, inp[t], t, mode)
+            seg.run(inp[2 * steps:])
             torch.cuda.synchronize()
-            wall = time.time() - t0
+            traced = time.time() - t0
     avg = prof.key_averages()
-    busy_us = sum(_dev_us(e) for e in avg)
-    launches = sum(e.count for e in avg if e.key in (
-        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    # the device's own events (kernels, copies, fills); an operator's
+    # entry carries its kernels' time too, so summing every entry would
+    # count each kernel twice
+    dev_evts = [e for e in avg if _on_device(e) and _dev_us(e) > 0]
+    busy_us = sum(_dev_us(e) for e in dev_evts)
+    launches = sum(e.count for e in avg if e.key in _LAUNCH_CALLS)
+    kernels = sum(e.count for e in dev_evts)
     ops = sum(e.count for e in avg if e.key.startswith("aten::"))
     top_host = sorted((e for e in avg if e.key.startswith("aten::")),
                       key=lambda e: -e.self_cpu_time_total)[:12]
-    top_dev = sorted((e for e in avg if _dev_us(e) > 0),
-                     key=lambda e: -_dev_us(e))[:12]
+    top_dev = sorted(dev_evts, key=lambda e: -_dev_us(e))[:12]
     dmc_kernels = {name: {
-        "launches_per_step": sum(e.count for e in avg if name in e.key)
+        "launches_per_step": sum(e.count for e in dev_evts if name in e.key)
         / steps,
-        "device_ms_per_step": sum(_dev_us(e) for e in avg if name in e.key)
-        / steps / 1e3} for name in DMC_KERNELS}
+        "device_ms_per_step": sum(_dev_us(e) for e in dev_evts
+                                  if name in e.key) / steps / 1e3}
+        for name in DMC_KERNELS}
     wall_ms = wall / steps * 1e3
     busy_ms = busy_us / steps / 1e3
     return {
         "device": torch.cuda.get_device_name(0), "batch": batch,
         "gates": gates, "steps": steps,
+        "step": "graph" if seg.graph else "eager",
+        "warm_up_s": warm_s,
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "traced_wall_ms_per_step": traced / steps * 1e3,
         "kernel_launches_per_step": launches / steps,
+        "device_kernels_per_step": kernels / steps,
         "aten_calls_per_step": ops / steps,
         "top_host_ops": [[e.key, e.count // steps,
                           e.self_cpu_time_total / steps / 1e3]
@@ -114,12 +243,13 @@ def profile_steps(batch=256, warm=4, steps=8, gates="bench"):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=256)
-    ap.add_argument("--warm", type=int, default=4)
-    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=8,
+                    help="steps per segment (a power of two)")
     ap.add_argument("--gates", choices=sorted(GATE_SETS), default="bench")
     args = ap.parse_args(argv)
-    print(json.dumps(profile_steps(args.batch, args.warm, args.steps,
-                                   args.gates)))
+    for graph in (True, False):
+        print(json.dumps(profile_steps(args.batch, args.steps, args.gates,
+                                       graph)), flush=True)
 
 
 if __name__ == "__main__":

@@ -33,7 +33,7 @@ def test_save_load_round_trip(env, tmp_path):
     sh = E.init_shared(CFG, g, CPU)
     sh["w3"] = sh["w3"] + 1                  # not the initial values
     if "opt" in sh["lstm"]:                  # the float LSTM's Adam step
-        sh["lstm"]["opt"]["step"] = 7
+        sh["lstm"]["opt"]["step"] = torch.tensor(7, dtype=torch.int32)
     path = str(tmp_path / "s.npz")
     checkpoint.save_state(path, sh)
     back = checkpoint.load_state(path, E.init_shared(CFG, g, CPU))

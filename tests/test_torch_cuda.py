@@ -139,3 +139,122 @@ def test_portable_roundtrip_on_gpu_matches_the_cpu(gpu, gates):
     assert dmc.fused_apply_walk.launches == 128          # two groups
     assert runner.decompress(arc, device=gpu) == data
     assert runner.compress(data, cfg, device="cpu", **kw) == arc
+
+
+# ---- the captured byte step (engine.make_segment_fn)
+
+GRAPH_KW = dict(block_size=128, seg_size=32, tbits=12, mbits=12, ibits=10,
+                pbits=12, lstm_hidden=32, lstm_horizon=4, dmc_nodes=4096)
+
+
+def _lanes(b, n, off=0):
+    with open("testdata/text100k.raw", "rb") as f:
+        raw = f.read()[off:off + b * n]
+    return np.frombuffer(raw, np.uint8).reshape(b, n).copy()
+
+
+@pytest.mark.parametrize("gates", [{}, {"PORT": 1}])
+def test_graph_archives_equal_the_eager_steps(gpu, gates):
+    """Two groups of 3 lanes through one transcoder (the second copied
+    into the captured graph's buffers), four segments each: the graph's
+    streams and histories equal the eager step's bit for bit, both count
+    one dmc_fused launch per byte step, and the graph decodes its own
+    streams exactly."""
+    cfg, g = E.EngineConfig(**GRAPH_KW), E.make_gates(gates)
+    groups = [_lanes(3, 128), _lanes(3, 128, 5000)]
+    res = {}
+    for graph in (True, False):
+        trans = E.make_transcoder(cfg, g, gpu, graph=graph)
+        dmc.fused_apply_walk.launches = 0
+        res[graph] = [trans(E.init_shared(cfg, g, gpu),
+                            E.init_perblock(cfg, g, 3, gpu), inp,
+                            np.zeros((3, cfg.comp_size), np.uint8),
+                            E.MODE_ENCODE) for inp in groups]
+        assert dmc.fused_apply_walk.launches == 2 * 128
+    for a, b in zip(res[True], res[False]):
+        for x, y in zip(a, b):
+            assert np.array_equal(x, y)
+    trans = E.make_transcoder(cfg, g, gpu)
+    for inp, (_, out, _) in zip(groups, res[True]):
+        hist, _, _ = trans(E.init_shared(cfg, g, gpu),
+                           E.init_perblock(cfg, g, 3, gpu),
+                           np.zeros_like(inp), out, E.MODE_DECODE)
+        assert np.array_equal(hist, inp)
+
+
+def test_graph_counts_its_launches_per_replay(gpu):
+    """The capture records one dmc_fused launch and no dmc_counts launch;
+    the warm-up's and the capture's host calls are not counted, each
+    replay is."""
+    cfg, g = E.EngineConfig(**GRAPH_KW), E.make_gates({})
+    seg = E.make_segment_fn(cfg, g, gpu)
+    n0 = dmc.launch_counts()
+    with torch.no_grad():
+        seg.start(E.init_shared(cfg, g, gpu), E.init_perblock(cfg, g, 2, gpu),
+                  E.init_coder(2, gpu),
+                  torch.zeros((2, cfg.comp_size), dtype=torch.uint8,
+                              device=gpu),
+                  torch.zeros(2, dtype=torch.int64, device=gpu))
+        assert seg.per_replay == [1, 0] and dmc.launch_counts() == n0
+        seg.run(torch.as_tensor(_lanes(2, 32).T.copy(), device=gpu))
+    assert dmc.launch_counts() == [n0[0] + 32, n0[1]]
+
+
+def test_capture_runs_its_warm_up_under_sync_debug_error(gpu):
+    """The second warm-up runs under set_sync_debug_mode("error"): a step
+    that reads a value back to the host raises there, naming the
+    operator; the mode is restored either way."""
+    cfg, g = E.EngineConfig(**GRAPH_KW), E.make_gates({})
+
+    def start(seg):
+        with torch.no_grad():
+            seg.start(E.init_shared(cfg, g, gpu),
+                      E.init_perblock(cfg, g, 2, gpu), E.init_coder(2, gpu),
+                      torch.zeros((2, cfg.comp_size), dtype=torch.uint8,
+                                  device=gpu),
+                      torch.zeros(2, dtype=torch.int64, device=gpu))
+    start(E.make_segment_fn(cfg, g, gpu))
+    assert torch.cuda.get_sync_debug_mode() == 0
+    seg = E.make_segment_fn(cfg, g, gpu)
+    body = seg.body
+
+    def syncing(st):
+        body(st)
+        int(st["t"])
+    seg.body = syncing
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        start(seg)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.parametrize("gates", [{}, {"PORT": 1}])
+def test_graphed_pretraining_equals_the_eager_replay(gpu, gates):
+    """A dictionary replay at B=1 through the graph gives the eager
+    replay's state: leaf for leaf."""
+    cfg = E.EngineConfig(**dict(GRAPH_KW, block_size=64))
+    g = E.make_gates(gates)
+    with open("testdata/mini.dic", "rb") as f:
+        data = np.frombuffer(f.read()[:300], np.uint8)
+    got, want = (E.make_pretrainer(cfg, g, gpu, graph=graph)(
+        E.init_shared(cfg, g, gpu), data) for graph in (True, False))
+    from cmix_tpu_torch.utils.checkpoint import _leaves
+    want = dict(_leaves(want))
+    for name, x in _leaves(got):
+        assert torch.equal(x, want[name]), name
+
+
+def test_profiler_counts_each_kernel_once(gpu):
+    """utils/profiling.py sums the device's own events: an operator's
+    entry carries its kernels' time too, and summing both counted every
+    eager kernel twice (2.0x the graph's busy time).  The eager step and
+    its graph run nearly the same kernels, so their busy times agree."""
+    from cmix_tpu_torch.utils import profiling
+    rows = [profiling.profile_steps(4, 4, "default", graph)
+            for graph in (True, False)]
+    busy = [r["device_busy_ms_per_step"] for r in rows]
+    assert 0.8 < busy[1] / busy[0] < 1.25, busy
+    kernels = [r["device_kernels_per_step"] for r in rows]
+    assert 0.9 < kernels[1] / kernels[0] <= 1.0, kernels
+    assert rows[0]["kernel_launches_per_step"] == 1.0      # cudaGraphLaunch
+    assert rows[0]["dmc_kernels"]["dmc_fused_kernel"][
+        "launches_per_step"] == 1.0

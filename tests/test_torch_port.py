@@ -85,7 +85,7 @@ def test_port_byte_step_matches_jax_from_identical_state(which, jax_gates):
     C = E._Consts(g, CPU)
     with torch.no_grad():
         p16_t, _ = E._predict_tree_b(cfg, g, C, copy.deepcopy(sh_t),
-                                     copy.deepcopy(pb_t), warm)
+                                     copy.deepcopy(pb_t), torch.tensor(warm))
     assert p16_t.dtype == torch.int32
     assert np.array_equal(p16_t.numpy(), p16_j)
 
@@ -96,7 +96,7 @@ def test_port_byte_step_matches_jax_from_identical_state(which, jax_gates):
         sh_t, pb_t, cd_t, e32, c32 = step_t(
             sh_t, pb_t, cd_t, torch.zeros((B, cfg.comp_size),
                                           dtype=torch.uint8),
-            torch.as_tensor(data[:, warm].copy()), warm,
+            torch.as_tensor(data[:, warm].copy()), torch.tensor(warm),
             torch.zeros(B, dtype=torch.int64))
     e32_j = np.stack([np.asarray(y) for y in ys[:8]], axis=1)
     assert np.array_equal(e32.numpy(), e32_j.astype(np.int64))

@@ -190,7 +190,7 @@ def step_parity(env, data, fields=None, warm=30):
         sh_t, pb_t, cd_t, e32, c32 = step_t(
             sh_t, pb_t, cd_t, torch.zeros((b, cfg.comp_size),
                                           dtype=torch.uint8),
-            torch.as_tensor(data[:, warm].copy()), warm,
+            torch.as_tensor(data[:, warm].copy()), torch.tensor(warm),
             torch.zeros(b, dtype=torch.int64))
     e32_j = np.stack([np.asarray(y) for y in ys[:8]], axis=1)
     assert np.array_equal(e32.numpy(), e32_j.astype(np.int64))
