@@ -44,7 +44,18 @@ without one.  Phases, each of which raises on failure:
    re-encoded byte-identically on the card and on the CPU; and the
    portable profile at CLI widths, its archive held to the JAX package's
    sha256;
-8. dictionary mode (``--dict``: the WRT text transform, WRTW=1 routed, the
+8. the gated path on ``testdata/gated.raw`` (the routed fixture and ~1 KiB
+   of text with table rows) under every off-by-default mechanism the port
+   runs (``utils/profiling.GATED``: SSE2, APM3X, MIX_DYN4, MIX_KIND,
+   MIX_AUX, SBANK_ADAPT, VMATCH, APM_FIXED, MIX_TAU, MIX_BOOST) with JVAL=2
+   routed by JVAL_ROUTE: the fast profile at CLI widths (exact round trip,
+   identical re-encode, launches > 0 both ways, every gate in the gate
+   record) and at small widths against the CPU's archive (sizes within
+   1%); the JAX package's PORT=1 archive ``testdata/gated.tcmx`` (of
+   ``GATED_PORT``, the mechanisms the portable profile allows) decoded and
+   re-encoded byte-identically on the card; the portable profile at CLI
+   widths, its archive held to the JAX package's sha256;
+9. dictionary mode (``--dict``: the WRT text transform, WRTW=1 routed, the
    shared state pretrained on the dictionary at B=1 and cached) with
    ``testdata/mini.dic`` (english.dic's first 128 lines) on a text prefix,
    in a fresh pretraining cache: the fast profile at CLI widths (the encode
@@ -53,12 +64,15 @@ without one.  Phases, each of which raises on failure:
    re-encode, flags 3 and WRTW=1 in the gate record), then the portable
    profile at CLI widths with an empty cache, its archive held to the JAX
    package's sha256 and decoded exactly;
-9. ms per byte step as the transcoder runs it (one segment after one of
-   warm-up), through the captured graph and through the eager step: the
-   bench speed profile at B=256 and B=1 and bench widths, and the default
-   and portable profiles at B=16 and B=256, CLI widths;
-10. the graph (``engine.make_segment_fn``: one byte step captured as a
-    CUDA graph and replayed, the default on the card, so phases 4-8 ran
+10. ms per byte step as the transcoder runs it (one segment after one of
+    warm-up), through the captured graph and through the eager step: the
+    bench speed profile at B=256 and B=1 and bench widths, and the default
+    and portable profiles at B=16 and B=256, CLI widths; then through the
+    graph at B=256 and CLI widths with and without the gated path's
+    mechanisms, each profile: wall, device busy, idle share and kernels
+    per step (``utils/profiling.py``);
+11. the graph (``engine.make_segment_fn``: one byte step captured as a
+    CUDA graph and replayed, the default on the card, so phases 4-9 ran
     through it): the main path's archives of phases 4 and 6 (fast and
     portable, CLI widths) against the eager step's, byte-identical (the
     portable one thus still the JAX package's); a dictionary replay at B=1
@@ -69,15 +83,15 @@ without one.  Phases, each of which raises on failure:
     and one bench-width segment (2048 steps x 256 lanes of bench4m.raw)
     encoded and decoded through ``engine.make_transcoder`` with a Meter,
     its report printed (MB/s each way);
-11. a ``kernels:`` summary, the JSON kernel line, the card line, and last
+12. a ``kernels:`` summary, the JSON kernel line, the card line, and last
     the contract line ``{"ok": true, "device": {...}}``.
 
-Each coding path (4-8, 10) is driven with the kernels' launch counts set
+Each coding path (4-9, 11) is driven with the kernels' launch counts set
 to 0 just before it and read just after; a graph's replays count the
 launches its capture recorded (the warm-up's launches, on copies of the
 state, and the capture's host calls are not counted).  The JSON line sums
-them (and gives the routed path's, the dictionary path's and its
-pretraining's sums on their own).  Every phase prints its seconds.
+them (and gives the routed path's, the gated path's, the dictionary path's
+and its pretraining's sums on their own).  Every phase prints its seconds.
 """
 
 import hashlib
@@ -114,10 +128,12 @@ LARGE_POOLS = (32768, 65536)
 STEP_STEPS = 8
 # the graph phase: the bench-width segment (the block cut to one segment
 # of bench.py's 2048 steps), steps per profiled segment, and the bytes of
-# the dictionary that the graph-vs-eager replays replay
+# the dictionary that the graph-vs-eager replays replay (cut from all 600
+# B, 640 steps, to 256 steps when the gated path joined: the eager step
+# ran at 0.08-0.13 s a step there)
 BENCH_SEG = 2048
 PROFILE_STEPS = 8
-DICT_EAGER_BYTES = 600
+DICT_EAGER_BYTES = 256
 # the portable fixture: the JAX package's PORT=1 archive of PORT_FIXTURE,
 # made on the CPU at these small widths in one coding group
 # (tests/test_torch_port_fixture.py regenerates it and holds it equal)
@@ -157,6 +173,24 @@ DICT_FILE = os.path.join(ROOT, "testdata", "mini.dic")
 DICT_KIB, DICT_BLOCK = 2, 128
 DICT_PORT_SHA256 = ("aff0d39ba4c1426e61ea2715cc91176c"
                     "83863427c7ebcc77749542b08d2d0027")
+# the gated path: the routed fixture and ~1 KiB of text with table rows
+# (tests/torch_parity.py --write-gated-fixture) under every off-by-default
+# mechanism the port runs (utils/profiling.GATED), JVAL=2 routed with JPEGX
+# by JVAL_ROUTE; the fast profile at CLI widths in GATED_BLOCK-byte blocks
+# and at small widths against the CPU; the JAX package's PORT=1 archive of
+# it (the mechanisms the portable profile allows, GATED_PORT) at small
+# widths in one group (tests/test_torch_gated_fixture.py regenerates it);
+# the portable profile at CLI widths in GATED_PORT_BLOCK-byte blocks, held
+# to the sha256 of the JAX package's CPU archive
+# (tests/test_torch_gated_cli_width.py recomputes it)
+GATED_FIXTURE = os.path.join(ROOT, "testdata", "gated.raw")
+GATED_ARCHIVE = os.path.join(ROOT, "testdata", "gated.tcmx")
+GATED_SMALL = ROUTED_SMALL
+GATED_BATCH = 64
+GATED_BLOCK, GATED_PORT_BLOCK = 256, 128
+JVAL_ROUTE = "2"
+GATED_PORT_SHA256 = ("5ec5a09a06d08629bbbf10c291b41ccc"
+                     "c85d1a58a403ae00b4fabbe7bc936a43")
 # the runner CLI's widths (tbits 18, LSTM 256, horizon auto = 4 under 256
 # KiB, 16384 DMC nodes; mbits 20, ibits 16, pbits 20 and 2 LSTM layers are
 # the EngineConfig defaults)
@@ -624,9 +658,11 @@ def main_path(device):
 
 
 def portable_cross_device(device, fixture=PORT_FIXTURE, archive=PORT_ARCHIVE,
-                          small=PORT_SMALL, batch=PORT_BATCH, what="text"):
-    """The JAX package's PORT=1 archive against the port on the card and
-    on the CPU: decodes exactly, re-encodes byte-identically."""
+                          small=PORT_SMALL, batch=PORT_BATCH, what="text",
+                          gates=None, cpu=True):
+    """The JAX package's PORT=1 archive (of ``gates``, PORT=1 alone by
+    default) against the port on the card and (``cpu``) on the CPU: decodes
+    exactly, re-encodes byte-identically."""
     from cmix_tpu_torch import runner
     from cmix_tpu_torch.engine import EngineConfig
     with open(fixture, "rb") as f:
@@ -634,7 +670,7 @@ def portable_cross_device(device, fixture=PORT_FIXTURE, archive=PORT_ARCHIVE,
     with open(archive, "rb") as f:
         ref = f.read()
     cfg = EngineConfig(**small)
-    kw = dict(max_batch=batch, gates={"PORT": 1})
+    kw = dict(max_batch=batch, gates=gates or {"PORT": 1})
     print(f"portable fixture {os.path.basename(archive)}: {len(data)} B of "
           f"{what}, the JAX package's PORT=1 archive {len(ref)} B "
           f"({cfg.block_size} B blocks, one group, small widths, gate "
@@ -646,7 +682,7 @@ def portable_cross_device(device, fixture=PORT_FIXTURE, archive=PORT_ARCHIVE,
             ("card encodes", lambda: runner.compress(
                 data, cfg, device=device, **kw), device),
             ("CPU encodes", lambda: runner.compress(
-                data, cfg, device="cpu", **kw), "cpu")):
+                data, cfg, device="cpu", **kw), "cpu"))[:3 if cpu else 2]:
         with Launches() as w:
             t0 = time.time()
             out = fn()
@@ -655,10 +691,11 @@ def portable_cross_device(device, fixture=PORT_FIXTURE, archive=PORT_ARCHIVE,
             windows.append(w)
             if w.counts["dmc_fused"] <= 0:
                 raise AssertionError(f"portable: {what}: no dmc_fused launch")
-    t0 = time.time()
-    back_cpu = runner.decompress(legs[1][1], device="cpu")
-    legs.append(("CPU decodes the card's archive", back_cpu,
-                 time.time() - t0))
+    if cpu:
+        t0 = time.time()
+        back_cpu = runner.decompress(legs[1][1], device="cpu")
+        legs.append(("CPU decodes the card's archive", back_cpu,
+                     time.time() - t0))
     for (what, out, sec), want in zip(legs, (data, ref, ref, data)):
         if out != want:
             raise AssertionError(f"portable: {what}: not exact "
@@ -751,6 +788,110 @@ def routed_path(device):
     print("routed portable path: the card's archive is byte-identical to the "
           f"JAX package's CPU archive (sha256 {digest[:16]}...)")
     return windows + w2
+
+
+class EnvVar:
+    """``os.environ[name] = value`` inside the window (JVAL_ROUTE: both
+    packages' ``compress`` read it)."""
+
+    def __init__(self, name, value):
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        self.old = os.environ.get(self.name)
+        os.environ[self.name] = self.value
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            del os.environ[self.name]
+        else:
+            os.environ[self.name] = self.old
+
+
+def gated_path(device):
+    """The off-by-default mechanisms on the gated fixture, JVAL=2 routed by
+    JVAL_ROUTE: the fast profile at CLI widths and at small widths against
+    the CPU, the JAX package's PORT=1 archive decoded and re-encoded on the
+    card, the portable profile at CLI widths held to the JAX package's
+    sha256 -> (launch windows, the step profiles)."""
+    from cmix_tpu_torch import runner
+    from cmix_tpu_torch.engine import EngineConfig, make_gates
+    from cmix_tpu_torch.preprocess import wrt
+    from cmix_tpu_torch.utils.profiling import GATED, GATED_PORT
+    with open(GATED_FIXTURE, "rb") as f:
+        data = f.read()
+    payload, meta = wrt.transform(data)
+    text = len(data) - os.path.getsize(ROUTED_FIXTURE)
+    print(f"gated path: {len(data)} B (the routed fixture and {text} B of "
+          f"text with table rows) -> {len(payload)} B payload; fast "
+          f"profile, CLI widths, block size cut 65536 -> {GATED_BLOCK} "
+          f"({-(-len(payload) // GATED_BLOCK)} blocks in one group), gates "
+          f"{GATED}, JVAL_ROUTE={JVAL_ROUTE}")
+    with EnvVar("JVAL_ROUTE", JVAL_ROUTE):
+        windows, arc = _round_trip("gated path", data, _cli_cfg(GATED_BLOCK),
+                                   device, gates=GATED)
+        want = make_gates(dict(GATED, X86X=2, LMS=2, GRID2=1, JPEGX=1,
+                               JVAL=int(JVAL_ROUTE))).blob()
+        gates = _gate_record(arc)
+        if gates != want:
+            raise AssertionError(f"gated path: gate record {gates!r}, not "
+                                 f"{want!r}")
+        print(f"gated path: gate record {gates.decode()!r}")
+
+        # the same model on the CPU and on the card at small widths
+        small = EngineConfig(**GATED_SMALL)
+        kw = dict(max_batch=GATED_BATCH, gates=GATED)
+        with Launches() as w:
+            a_gpu = runner.compress(data, small, device=device, **kw)
+            ok = runner.decompress(a_gpu, device=device) == data
+        windows.append(w)
+        t0 = time.time()
+        a_cpu = runner.compress(data, small, device="cpu", **kw)
+        t_cpu = time.time() - t0
+        gap = (len(a_gpu) - len(a_cpu)) / len(a_cpu)
+        if not ok or abs(gap) > 0.01:
+            raise AssertionError(f"gated, small widths: gpu {len(a_gpu)} B vs"
+                                 f" cpu {len(a_cpu)} B ({gap:+.4%}), round "
+                                 f"trip {ok}")
+        print(f"gated, small widths ({small.block_size} B blocks): gpu archive"
+              f" {len(a_gpu)} B, cpu {len(a_cpu)} B ({gap:+.4%}; cpu encode "
+              f"{t_cpu:.1f} s), gpu round trip exact")
+
+        windows += portable_cross_device(
+            device, GATED_FIXTURE, GATED_ARCHIVE, GATED_SMALL, GATED_BATCH,
+            "gated content", gates=GATED_PORT, cpu=False)
+        print(f"gated portable path: CLI widths, {GATED_PORT}, block size cut"
+              f" 65536 -> {GATED_PORT_BLOCK}")
+        w2, arc = _round_trip("gated portable path", data,
+                              _cli_cfg(GATED_PORT_BLOCK), device,
+                              reencode=False, gates=GATED_PORT)
+    digest = hashlib.sha256(arc).hexdigest()
+    if digest != GATED_PORT_SHA256:
+        raise AssertionError(f"gated portable path: archive sha256 {digest} "
+                             f"is not the JAX package's {GATED_PORT_SHA256}")
+    print("gated portable path: the card's archive is byte-identical to the "
+          f"JAX package's CPU archive (sha256 {digest[:16]}...)")
+    return windows + w2
+
+
+def gated_profiles():
+    """ms per graphed byte step at B=256 and CLI widths, device busy, idle
+    share and kernels per step, with and without the mechanisms, in both
+    profiles (``utils/profiling.py``)."""
+    from cmix_tpu_torch.utils import profiling
+    rows = {}
+    for gates in ("default", "gated", "portable", "gated-portable"):
+        r = profiling.profile_steps(256, PROFILE_STEPS, gates, True, "cli")
+        rows[gates] = r
+        print(f"gated: profile, CLI widths, B=256, graph, gates {gates}: wall"
+              f" {r['wall_ms_per_step']:.3f} ms/step "
+              f"({r['traced_wall_ms_per_step']:.3f} traced), device busy "
+              f"{r['device_busy_ms_per_step']:.3f} ms/step, idle share "
+              f"{r['device_idle_share']:.4f}, device kernels/step "
+              f"{r['device_kernels_per_step']:.2f}; dmc_fused "
+              f"{r['dmc_kernels']['dmc_fused_kernel']}; top kernels "
+              f"{r['top_device_kernels'][:4]}")
+    return rows
 
 
 class Replays:
@@ -1105,9 +1246,12 @@ def main():
     windows += w
     routed = phase("routed path", routed_path, device)
     windows += routed
+    gated = phase("gated path", gated_path, device)
+    windows += gated
     dicts, replayed = phase("dict path", dict_path, device)
     windows += dicts
     phase("step times", step_times, device)
+    phase("gated profiles", gated_profiles)
     windows += phase("graph", graph_phase, device, {
         "main path, fast profile": main_arc,
         "portable path, PORT=1": port_arc})
@@ -1122,6 +1266,7 @@ def main():
             "replaces": replaces[name],
             "launches": sum(w.counts[name] for w in windows),
             "launches_routed": sum(w.counts[name] for w in routed),
+            "launches_gated": sum(w.counts[name] for w in gated),
             "launches_dict": sum(w.counts[name] for w in dicts),
             "launches_pretrain": replayed if name == "dmc_fused" else 0,
             "max_abs_err": max(v["err"] for v in per_level.values()),
@@ -1131,7 +1276,8 @@ def main():
             "floor_ms": r["floor_ms"], "floor_by": "latency",
             "library_ms": None})
     summary = ", ".join(f"{k['name']} launches={k['launches']} (routed "
-                        f"path {k['launches_routed']}, dictionary path "
+                        f"path {k['launches_routed']}, gated path "
+                        f"{k['launches_gated']}, dictionary path "
                         f"{k['launches_dict']}, of them pretraining "
                         f"{k['launches_pretrain']})" for k in kernels)
     print(f"kernels: {summary} over the coding paths; both exact at L=1..8 "

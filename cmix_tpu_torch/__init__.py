@@ -10,8 +10,10 @@ host modules it needs are kept as its own copies.
 Entry points run on the GPU (``device="cuda"``) unless the caller asks for
 the CPU; there is no silent fallback.  The port supports the fast profile
 with the default gates and the bench speed profile, and the portable
-integer profile (PORT=1), on any content (with the content-routed gates),
-with or without a dictionary (WRT and pretraining; see ``runner``).
+integer profile (PORT=1), each on the default gates with the
+off-by-default mechanisms of ``engine.make_gates`` too, on any content
+(with the content-routed gates), with or without a dictionary (WRT and
+pretraining; see ``runner``).
 """
 
 from cmix_tpu_torch.version import FORMAT_VERSION  # noqa: F401

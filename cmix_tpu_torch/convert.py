@@ -9,7 +9,8 @@ joined into one table, the DMC tables' TPU tile layout (B, N/1024, 8, 128)
 becomes flat (B, N).  The portable profile's integer tables and the
 integer LSTM's leaves stay int32, as the port computes them; float32 leaves
 (the fast profile's tables, the strided LMS's ``lms_conf``, ``lms_w`` and
-``lms_err``) pass as they are, and the per-block segment-table fields
+``lms_err``, SBANK_ADAPT's ``sbank_c``) and uint8 leaves (JVAL's ``jval``
+and ``jval2``) pass as they are, and the per-block segment-table fields
 (``rec_forced``, ``blk_kind``, ``jpeg_rel0``, ``jpeg_clen``) become int64.
 ``to_numpy`` is the inverse, so tests can compare the two packages leaf
 by leaf.
@@ -29,7 +30,7 @@ _BITS32 = {"d12", "aux_tbl", "ppm", "sbank", "bank", "dmc_nxt", "dmc_cnt",
 _INT32 = {"step", "ppm_ck", "dmc_cur", "dmc_top", "dmc_uX", "dmc_uS",
           "dmc_uU", "d0_p", "d0_c", "match_conf", "match2_conf", "runx_conf",
           "ppm_see", "sbank_p", "w1", "bias1", "w2", "w2b", "w2c", "w2x",
-          "bias2", "w3", "bias3", "apm", "w_apm"}
+          "bias2", "w3", "bias3", "apm", "w_apm", "w_sse"}
 # uint32 leaves held as int64 u32 values (the WRTW=2 codeword tables too)
 _U32_SMALL = {"ind_val", "h32", "h48", "x1", "x2", "xc", "wrtw_word",
               "wrtw_stem"}

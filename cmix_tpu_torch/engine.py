@@ -28,8 +28,18 @@ only), and with a dictionary WRTW=1 (the WRT codeword tracker of
 ``contexts/hashes.py``; any WRTW value is accepted, and at 2 and above the
 shared state carries the dictionary's ``wrtw_word``/``wrtw_stem`` tables).
 ``make_pretrainer`` replays a dictionary through the model at B=1 (the
-runner's pretraining).  Every other gate value raises NotImplementedError
-naming the ROADMAP.md item that will port it.
+runner's pretraining).
+
+On the default gates of either profile it also runs the off-by-default
+mechanisms, alone or together: SSE2 (a serial SSE stage with a learned
+2-weight mixer), APM3X (a bit-history-gated APM), MIX_DYN4 and MIX_KIND
+(six more layer-1 gates), MIX_AUX (the LSTM/PPM/DMC stretches fed raw into
+layer 2), APM_FIXED (the fixed final blend) and JVAL (the JPEG
+coefficient-value model, with JPEGX); in the fast profile only (as the JAX
+package rules) VMATCH (the vertical match), SBANK_ADAPT (count-adaptive
+state-bank rates), MIX_TAU (the decayed mixer rate) and MIX_BOOST.  Every
+other gate value raises NotImplementedError naming the ROADMAP.md item
+that will port it.
 
 Determinism on the card (encode and decode must compute the same bits):
 
@@ -146,7 +156,16 @@ _ROUTED = {"X86X": ("0", "2"), "GRID2": ("0", "1"), "JPEGX": ("0", "1"),
 _PORT_GATES = ("PORT", "ILSTM_LRX", "ILSTM_ADAM")
 # float-internal paths the portable profile excludes (JAX engine _derive)
 _NOT_WITH_PORT = ("VMATCH", "LMS", "MIX_TAU", "MIX_BOOST")
-_OFF_BY_DEFAULT = "item 15 (remaining off-by-default gates)"
+# the off-by-default mechanisms accepted on the default gates of either
+# profile, alone or together: name -> the values accepted (a float gate:
+# any value above 0; MIX_BOOST_N: any value, with MIX_BOOST on)
+_MECHANISMS = {"SSE2": ("1",), "APM3X": ("1",), "MIX_DYN4": ("1",),
+               "MIX_KIND": ("1",), "MIX_AUX": ("1",), "SBANK_ADAPT": ("1",),
+               "VMATCH": ("1",), "APM_FIXED": ("1",), "JVAL": ("1", "2"),
+               "MIX_TAU": float, "MIX_BOOST": float, "MIX_BOOST_N": float}
+_OFF_BY_DEFAULT = ("item 15b (the default-on components switched off, the "
+                   "value knobs, the bench set mixed with other gates, PORT=1"
+                   " on the bench gates, X86X=1, LMS=1)")
 
 
 def _norm_gate(name, typ, raw):
@@ -160,6 +179,7 @@ def _norm_gate(name, typ, raw):
     return str(raw)
 
 
+GATE_NAMES = tuple(n for n, _, _ in _GATE_SPEC)
 _DEFAULTS = {n: _norm_gate(n, t, d) for n, t, d in _GATE_SPEC}
 _BENCH = dict(_DEFAULTS, **{k: str(v) for k, v in BENCH_GATES.items()})
 
@@ -234,6 +254,47 @@ class Gates:
     def wrtw(self):
         return self._i("WRTW")
 
+    # ---- the off-by-default mechanisms
+    @cached_property
+    def sse2(self):
+        return self._i("SSE2")
+
+    @cached_property
+    def apm3x(self):
+        return self._i("APM3X")
+
+    @cached_property
+    def mix_dyn4(self):
+        return self._i("MIX_DYN4")
+
+    @cached_property
+    def mix_kind(self):
+        return self._i("MIX_KIND")
+
+    @cached_property
+    def mix_aux(self):
+        return self._i("MIX_AUX")
+
+    @cached_property
+    def sbank_adapt(self):
+        return self._i("SBANK_ADAPT")
+
+    @cached_property
+    def vmatch(self):
+        return self._i("VMATCH")
+
+    @cached_property
+    def apm_fixed(self):
+        return self._i("APM_FIXED")
+
+    @cached_property
+    def jval(self):
+        return self._i("JVAL")
+
+    @cached_property
+    def mix_tau(self):
+        return float(self["MIX_TAU"])
+
     # ---- derived sizes (cf. cmix_tpu/engine.py _derive)
     @cached_property
     def n_ind(self):
@@ -280,10 +341,11 @@ class Gates:
 
     @cached_property
     def n_primary(self):
-        # bank + d0/d12 + match + lstm + ppm + sbank + dmc + lms + match2
-        # + runx
+        # bank + d0/d12 + match + lstm + ppm + sbank + dmc + lms + vmatch
+        # + match2 + runx + jval (one channel per JVAL tier)
         return (self.n_bank + 4 + self.n_match + 1 + 1 + self.n_sbank + 1
-                + (1 if self.lms else 0) + self.n_match + self.runx_n)
+                + (1 if self.lms else 0) + self.vmatch + self.n_match
+                + self.runx_n + self.jval)
 
     @cached_property
     def n_inputs(self):
@@ -292,8 +354,9 @@ class Gates:
     @cached_property
     def mix1_rows(self):
         return np.array([1, 8, 256, 1024, 64, 256, 256, 64, 512, 128, 64]
-                        + [257, 256, 64, 256] + [2048, 257, 32, 256, 256],
-                        dtype=np.int64)
+                        + [257, 256, 64, 256] + [2048, 257, 32, 256, 256]
+                        + [32, 256, 64, 256, 272] * self.mix_dyn4
+                        + [64] * self.mix_kind, dtype=np.int64)
 
     @cached_property
     def n_mix1(self):
@@ -306,6 +369,18 @@ class Gates:
     @cached_property
     def mix1_total(self):
         return int(self.mix1_rows.sum())
+
+    @cached_property
+    def m2in(self):
+        # layer-2 inputs: the layer-1 outputs, then MIX_AUX's raw taps
+        return self.n_mix1 + 3 * self.mix_aux
+
+    @cached_property
+    def aux_taps(self):
+        # the input channels of the LSTM, PPM and DMC stretches (MIX_DYN4's
+        # average, MIX_AUX's taps)
+        lstm = self.n_bank + 4 + self.n_match
+        return (lstm, lstm + 1, self.dmc_idx)
 
     @cached_property
     def mix2_rows(self):
@@ -338,38 +413,74 @@ class Gates:
                           ).astype(np.float32) / 4096.0
                          for k in self.sbank_kind])     # (NS, 256)
 
+    @cached_property
+    def n_apm(self):
+        # the parallel APMs: byte, match, order-2, word, line (APM2X) and
+        # APM3X's bit-history stage
+        return 5 + self.apm3x
 
-N_APM = 5                  # 3 + 2 * APM2X
-APM_ROWS = 576 + 512       # + 512 * APM2X
+    @cached_property
+    def apm_rows(self):
+        # [0,576) the first three | [576,1088) APM2X's two | 256 rows of
+        # APM3X | 256 rows of the SSE2 stage
+        return 576 + 512 + 256 * self.apm3x + 256 * self.sse2
+
+    @cached_property
+    def sse2_base(self):
+        return 576 + 512 + 256 * self.apm3x
 
 
 def make_gates(env=None) -> Gates:
     """Validate a gate mapping (name -> raw value; missing = default).
 
-    Raises FormatError where the JAX package does (an unknown gate, PORT
-    with a float-internal path) and NotImplementedError for a gate set
-    this port does not run yet."""
+    Raises FormatError where the JAX package does (an unknown gate, an X86X
+    it does not know, PORT with a float-internal path) and where it accepts
+    a gate set that it cannot code (PORT with SBANK_ADAPT, JVAL without
+    JPEGX: ROADMAP.md's reference faults), and NotImplementedError for a
+    gate set this port does not run yet."""
     env = dict(env or {})
     known = {n for n, _, _ in _GATE_SPEC}
     for name in env:
         if name not in known:
             raise FormatError(f"unknown model gate {name!r}")
     vals = {n: _norm_gate(n, t, env.get(n, d)) for n, t, d in _GATE_SPEC}
-    if vals["PORT"] != "0" and any(vals[n] != _DEFAULTS[n]
-                                   for n in _NOT_WITH_PORT):
+    if vals["X86X"] not in ("0", "1", "2"):
+        raise FormatError(f"X86X={vals['X86X']} unsupported (expected 0, 1, "
+                          "2)")
+    port = vals["PORT"] != "0"
+    if port and any(vals[n] != _DEFAULTS[n] for n in _NOT_WITH_PORT):
         raise FormatError("PORT=1 requires VMATCH=0, LMS=0, MIX_TAU=0 "
                           "and MIX_BOOST=0 (float-internal paths)")
-    # the gate set under the routed gates: the defaults or the bench set
+    if port and vals["SBANK_ADAPT"] != "0":
+        raise FormatError("PORT=1 with SBANK_ADAPT cannot be coded: the JAX "
+                          "package keeps its visit counts in float32 and its "
+                          "integer rate shift fails, so no archive has it")
+    if vals["JVAL"] != "0" and vals["JPEGX"] == "0":
+        raise FormatError("JVAL requires JPEGX: its contexts are the JPEG "
+                          "coefficient coordinates (the runner routes it "
+                          "with JPEGX)")
+
+    def accepted(n, v):
+        ok = _MECHANISMS[n]
+        if n == "MIX_BOOST_N":
+            return float(vals["MIX_BOOST"]) > 0
+        return float(v) > 0 if ok is float else v in ok
+
+    mech = [n for n in _MECHANISMS
+            if vals[n] != _DEFAULTS[n] and accepted(n, vals[n])]
+    # the gate set under the routed gates and the mechanisms: the defaults
+    # or the bench set
     base = {n: _DEFAULTS[n] if v in _ROUTED.get(n, ()) or n == "WRTW"
-            else v for n, v in vals.items()}
+            or n in mech else v for n, v in vals.items()}
     off = [n for n, _, _ in _GATE_SPEC
            if base[n] != _DEFAULTS[n] and n not in _PORT_GATES]
-    if off and base != _BENCH:
-        n = off[0]
+    if off and (base != _BENCH or mech):
+        n = off[0] if base != _BENCH else mech[0]
         where = _OFF_BY_DEFAULT
-        if n in BENCH_GATES:
+        if n in BENCH_GATES or base == _BENCH:
             where = ("the bench profile's gates only as the whole set "
-                     f"{BENCH_GATES}, without PORT; other mixes: " + where)
+                     f"{BENCH_GATES}, without PORT or other gates; other "
+                     "mixes: " + where)
         raise NotImplementedError(
             f"gate {n}={vals[n]} is not ported to cmix_tpu_torch yet "
             f"(ROADMAP.md queue 1, {where})")
@@ -404,6 +515,14 @@ ST_CLAMP = 12.0
 SLOT_INIT = (4096 << 18) | (2048 << 6)
 HDR_INIT = 256 << 16
 APM_RATE = 0.02
+# JVAL: zigzag position -> band bucket (the low bands get rows of their
+# own, the high-frequency tail shares); the rows per tier (copies of
+# cmix_tpu/engine.py _JBAND, JVAL_ROWS, JVAL2_ROWS)
+_JBAND = np.concatenate([
+    np.arange(6), np.full(4, 6), np.full(6, 7), np.full(12, 8),
+    np.full(36, 9)]).astype(np.int64)     # (64,)
+JVAL_ROWS = 4 * 10 * 8 * 8                # comp x band x magN x magW
+JVAL2_ROWS = 4 * 64                       # comp x zigzag position
 POS_BITS = 24
 PPM_INC = 3
 CNT_CAP = 60
@@ -534,6 +653,12 @@ def _see_init(g):
     return np.tile(est[None], (g.n_ppm, 1, 1))
 
 
+def _w2_init_row(g):
+    """Layer 2 starts as the layer-1 outputs' mean; MIX_AUX's taps at 0."""
+    return np.concatenate([np.full(g.n_mix1, 1.0 / g.n_mix1, np.float32),
+                           np.zeros(g.m2in - g.n_mix1, np.float32)])
+
+
 def _apm_row():
     stv = (np.arange(33) - 16) * 0.5
     return (1.0 / (1.0 + np.exp(-stv))).astype(np.float32)
@@ -551,7 +676,7 @@ def init_shared(cfg: EngineConfig, g: Gates, device, wrtw_tables=None):
     n_pri = g.n_primary
     w1_row = np.concatenate([np.full(n_pri, 1.0 / n_pri, np.float32),
                              np.zeros(g.n_inputs - n_pri, np.float32)])
-    w2_row = np.full(g.n_mix1, 1.0 / g.n_mix1, np.float32)
+    w2_row = _w2_init_row(g)
     row0 = np.full(256, SLOT_INIT, dtype=np.int32)
     row0[0] = HDR_INIT
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
@@ -580,10 +705,10 @@ def init_shared(cfg: EngineConfig, g: Gates, device, wrtw_tables=None):
         "bias2": torch.zeros((g.n_l2, 256), **f32),
         "w3": torch.full((8, g.n_l2), 1.0 / g.n_l2, **f32),
         "bias3": torch.zeros(256, **f32),
-        "apm": t(np.tile(_apm_row()[None], (APM_ROWS, 1))),
+        "apm": t(np.tile(_apm_row()[None], (g.apm_rows, 1))),
         "w_apm": t(np.tile(np.concatenate(
-            [[0.4], np.full(N_APM, 0.6 / N_APM)]).astype(np.float32)[None],
-            (64, 1))),
+            [[0.4], np.full(g.n_apm, 0.6 / g.n_apm)]).astype(np.float32)
+            [None], (64, 1))),
         "vocab_force": torch.zeros(256, dtype=torch.int64, device=device),
         "match2_conf": torch.full((g.n_match, 32), 0.55, **f32),
         "runx_conf": torch.full((g.runx_n, 32), 0.55, **f32),
@@ -592,6 +717,20 @@ def init_shared(cfg: EngineConfig, g: Gates, device, wrtw_tables=None):
     }
     if g.ppm_ck:
         sh["ppm_ck"] = torch.full((g.n_ppm, cfg.prows), 256, **i32)
+    # JVAL's byte counts per (component, band, magN, magW) and, at JVAL=2,
+    # per (component, zigzag position)
+    if g.jval:
+        sh["jval"] = torch.zeros((JVAL_ROWS, 256), dtype=torch.uint8,
+                                 device=device)
+    if g.jval >= 2:
+        sh["jval2"] = torch.zeros((JVAL2_ROWS, 256), dtype=torch.uint8,
+                                  device=device)
+    # the SSE2 stage's 2-weight mixer (input, stage output): the identity
+    if g.sse2:
+        sh["w_sse"] = t(np.tile(np.float32([[1.0, 0.0]]), (256, 1)))
+    # SBANK_ADAPT's visits per (model, state), float32 as in the JAX package
+    if g.sbank_adapt:
+        sh["sbank_c"] = torch.zeros((g.n_sbank, 256), **f32)
     if g.port:
         sh.update(_port_tables(g, device))
         del sh["vmatch_conf"], sh["lms_conf"], sh["w1_cnt"]
@@ -619,7 +758,7 @@ def _port_tables(g: Gates, device):
     w1 = q(np.concatenate([np.full(n_pri, 1.0 / n_pri, np.float32),
                            np.zeros(g.n_inputs - n_pri, np.float32)]),
            65536)
-    w2 = q(np.full(g.n_mix1, 1.0 / g.n_mix1, np.float32), 65536)
+    w2 = q(_w2_init_row(g), 65536)
     tile = lambda row, n: torch.as_tensor(                       # noqa
         np.ascontiguousarray(np.tile(row[None], (n, 1))), device=device)
     i32 = dict(dtype=torch.int32, device=device)
@@ -642,9 +781,10 @@ def _port_tables(g: Gates, device):
         "bias2": torch.zeros((g.n_l2, 256), **i32),
         "w3": torch.full((8, g.n_l2), 65536 // g.n_l2, **i32),
         "bias3": torch.zeros(256, **i32),
-        "apm": tile(q(_apm_row(), 4096, 1, 4095), APM_ROWS),
-        "w_apm": tile(np.array([26214] + [(65536 * 6 // 10) // N_APM] * N_APM,
-                               np.int32), 64),
+        "apm": tile(q(_apm_row(), 4096, 1, 4095), g.apm_rows),
+        "w_apm": tile(np.array([26214] + [(65536 * 6 // 10) // g.n_apm]
+                               * g.n_apm, np.int32), 64),
+        **({"w_sse": tile(np.int32([65536, 0]), 256)} if g.sse2 else {}),
     }
 
 
@@ -728,6 +868,8 @@ class _Consts:
         self.magq_bounds = t([1, 2, 4, 8, 16, 32, 64])
         self.k8 = torch.arange(8, device=device)
         self.ar32 = torch.arange(32, device=device)
+        self.jband = t(_JBAND)
+        self.aux_taps = t(g.aux_taps)
 
 
 def _stretch_f(p):
@@ -752,6 +894,26 @@ def _vote(alive, bit, st):
     sign = torch.where(bit == 1, 1, -1).to(st.dtype)
     return torch.where(alive, sign * st[:, :, None], torch.zeros_like(
         st[:, :, None]))
+
+
+def _apm_pos(port, st):
+    """Where a stretch reads the 33-entry APM rows: (tl, frac), 7-bit
+    integer weights over st256 under PORT, float32 otherwise."""
+    if port:
+        tq = torch.clamp(st + 2048, 0, 4095)
+        tl = torch.clamp(tq >> 7, max=31).long()
+        return tl, tq - (tl.to(torch.int32) << 7)            # 0..127
+    tf = torch.clamp((st + 8.0) * 2.0, 0.0, 31.999)
+    tl = tf.long()
+    return tl, tf - tl.float()
+
+
+def _apm_read(port, rows, tl, frac):
+    """APM rows (B, 33) interpolated at (tl, frac): p12, or f32."""
+    lo, hi = torch.gather(rows, 1, tl), torch.gather(rows, 1, tl + 1)
+    if port:
+        return torch.clamp((lo * (128 - frac) + hi * frac) >> 7, 1, 4095)
+    return lo * (1 - frac) + hi * frac
 
 
 def _take_cols(tbl, col):
@@ -813,6 +975,22 @@ def _set_rows(tbl2d, flat_idx, vals):
     tbl2d[f] = v[_winner_pos(f)]
 
 
+def _set_rows_where(tbl2d, idx, vals, ok):
+    """``tbl2d[idx[ok]] = vals[ok]`` for (B,) rows ``idx`` and (B, ...)
+    ``vals``, duplicates resolved by ``_winner_pos``, in fixed shapes (no
+    host sync, so a graph can capture it): an entry masked out repeats the
+    write of the highest entry kept, or with none kept writes row 0 back
+    as it is."""
+    pos = torch.arange(idx.shape[0], device=idx.device)
+    h = torch.where(ok, pos, -1).max()
+    some = h >= 0
+    hc = h.clamp(min=0).view(1)
+    f = torch.where(ok, idx, torch.where(some, idx.index_select(0, hc), 0))
+    keep = torch.where(some, vals.index_select(0, hc), tbl2d[:1])
+    _set_rows(tbl2d, f, torch.where(
+        ok.view((-1,) + (1,) * (vals.dim() - 1)), vals, keep))
+
+
 def _scatter_add(n, idx, vals):
     """zeros(n, ...) with ``vals`` summed at ``idx`` (deterministic
     ``index_add_``: a sorted segment sum on CUDA)."""
@@ -851,6 +1029,47 @@ def _dyn3_gates(cs, pb, exp_byte, pdst, ptot):
              + 16.0 * (ptot[:, -1] > 0).float()).long(),
             cs["last_word"] & 0xFF,
             _qdelta(b1u, b2u) | (_qdelta(b2u, b3u) << 4)]
+
+
+def _dyn4_gates(g, C, cs, pb, x, above_l, b1):
+    """The MIX_DYN4 layer-1 gate values: the LSTM/PPM/DMC stretches'
+    average at the root node, bucketed; the full coarse class register;
+    sentence position x word length; the first indirect value's byte; the
+    grid nibble pair (above, left)."""
+    a = x[:, C.aux_taps, 1]                                  # (B, 3)
+    if g.port:                                               # st256 int32
+        avg = (a[:, 0] + a[:, 1] + a[:, 2]) // 3
+        aux_b = torch.clamp((avg >> 7) + 15, 0, 31).long()
+    else:
+        avg = (a[:, 0] + a[:, 1] + a[:, 2]) * (1.0 / 3.0)
+        aux_b = torch.clamp(torch.floor(avg * 2.0) + 15, 0, 31).long()
+    return [aux_b,
+            cs["cls2reg"] & 0xFF,
+            torch.clamp(cs["sentpos"] >> 2, max=7) * 8
+            + torch.clamp(cs["wordlen"], max=7),
+            pb["ind_val"][:, 0] & 0xFF,
+            (torch.clamp(above_l, max=256) >> 4) * 16 + (b1 >> 4)]
+
+
+def _jval_channel(port, C, jrows, jvalid):
+    """A JVAL tier's stretch on the byte tree: the row's byte counts (plus
+    1/16 each) as a distribution, split at every node as the LSTM's and
+    PPM's are; 0 off the JPEG planes.  The sums run in sixteenths, in
+    int32 as the JAX package's PORT twin (below 2^21; a node's numerator
+    << 12 below 2^31); its float32 sums are these values exactly (multiples
+    of 1/16 below 2^17), whatever their order."""
+    jq = jrows.to(torch.int32) * 16 + 1
+    jqc = torch.cat([torch.zeros_like(jq[:, :1]),
+                     torch.cumsum(jq, dim=1).to(torch.int32)], dim=1)
+    j_lo, j_hi, j_mid = jqc[:, C.lo], jqc[:, C.hi], jqc[:, C.mid]
+    if port:
+        jp12 = torch.clamp(((j_hi - j_mid) << 12)
+                           // torch.clamp(j_hi - j_lo, min=1), 1, 4095)
+        return torch.where(jvalid[:, None], _st256(jp12), 0)[:, None]
+    jp = torch.clamp((j_hi - j_mid).float() * 0.0625
+                     / torch.clamp((j_hi - j_lo).float() * 0.0625, min=1e-9),
+                     1e-5, 1 - 1e-5)
+    return torch.where(jvalid[:, None], _stretch_f(jp), 0.0)[:, None]
 
 
 # ------------------------------------------------------------ per-byte ctxs
@@ -1019,7 +1238,10 @@ def _record_ctx_vals(cfg, g, C, pb, t):
     """Record-grid context values (B, 4 + 2*GRID2 + 8*JPEGX) u32: byte
     above, two-above, column; GRID2's pixel neighbourhood (NW+N, N+NE+W);
     JPEGX's coefficient-plane contexts.  Every history byte they read is
-    one gather at stacked offsets (mod the block, as the JAX package)."""
+    one gather at stacked offsets (mod the block, as the JAX package).
+    -> (values, record length, column, jx): jx is JVAL's direct rows
+    (``jctx``, at JVAL=2 ``jctx2``: 0 off the planes) and ``jvalid``, else
+    None."""
     rl = _record_rl(pb)
     n = cfg.block_size
     tt = t.expand_as(rl)
@@ -1070,8 +1292,16 @@ def _record_ctx_vals(cfg, g, C, pb, t):
                torch.full_like(rl, 0x2545F491), ck + 0x9E3779B9,
                ck + 0xC2B2AE3D, ck + 0x27D4EB2F, ck + 0x165667B1,
                ck + 0x85EBCA6B]
+    jx = None
+    if g.jval:
+        # component x zigzag band x magnitude(N) x magnitude(W)
+        comp = ck >> 6
+        jctx = ((comp * 10 + C.jband[kq]) * 8 + m_above) * 8 + m_lfj
+        jx = dict(jctx=torch.where(valid, jctx, 0), jvalid=valid)
+        if g.jval >= 2:
+            jx["jctx2"] = torch.where(valid, ck, 0)       # comp * 64 + k
     return (mix32(torch.stack(hs, 1), torch.stack(xs, 1) & M32), rl,
-            posr)
+            posr, jx)
 
 
 # --------------------------------------------------------------- range coder
@@ -1187,7 +1417,7 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
     cs = pb["ctx"]
     node, level = C.node, C.level
     dev = node.device
-    rec_vals, rec_rl, rec_posr = _record_ctx_vals(cfg, g, C, pb, t)
+    rec_vals, rec_rl, rec_posr, jx = _record_ctx_vals(cfg, g, C, pb, t)
     x86_vals, x86_gate = x86_ctx_vals(pb["x86"])
     dist_b1 = None
     if g.ctx4:
@@ -1336,6 +1566,20 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
         lms = dict(xs=xs_f, pred=predf, pbyte=pbyte, errb=errb, conf=lconf,
                    med=med)
 
+    # ---- vertical match (VMATCH): the previous line's byte at this column
+    # votes its tree path, its confidence learned per matched-prefix length
+    vm, vmx = [], None
+    if g.vmatch:
+        vlml = torch.clamp(cs["lml"], max=31)
+        vconf = sh["vmatch_conf"][vlml]
+        vexp = torch.where(v_alive, above_l, 0)
+        v_on = v_alive[:, None] & (node[None, :] == (1 << lvl[0])
+                                   + (vexp[:, None] >> (8 - lvl[0])))
+        v_bit = (vexp[:, None] >> (7 - lvl[0])) & 1
+        vm = [torch.where(v_on, torch.where(v_bit == 1, 1.0, -1.0)
+                          * _stretch_f(vconf)[:, None], 0.0)[:, None]]
+        vmx = dict(vlml=vlml, vconf=vconf, vexp=vexp, valive=v_alive)
+
     # ---- run channels (RUNX) from the bank rows' header slot
     rx_rows = hdr[:, :g.runx_n] & 0xFFFF
     rx_byte = (rx_rows >> 8) & 0xFF
@@ -1347,8 +1591,18 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
     rx_bit = (rx_byte[:, :, None] >> (7 - lvl)) & 1
     st_runx = _vote(rx_alive, rx_bit, st_of(rx_conf))
 
+    # ---- JPEG coefficient values (JVAL): the byte distribution of the
+    # direct (comp, band, magN, magW) row and, at JVAL=2, of the
+    # (comp, zigzag position) row
+    jv, jrows = [], []
+    if g.jval:
+        jrows = [sh["jval"][jx["jctx"]]]                     # (B, 256) u8
+        if g.jval >= 2:
+            jrows.append(sh["jval2"][jx["jctx2"]])
+        jv = [_jval_channel(port, C, r, jx["jvalid"]) for r in jrows]
+
     parts = [st_bank, st_d0[:, None, :], st_d12, st_match, st_lstm, st_ppm,
-             st_sbank, st_dmc] + lm + [st_match2, st_runx]
+             st_sbank, st_dmc] + lm + vm + [st_match2, st_runx] + jv
     if g.bank_ch > 1 and port:
         cnti = rows & 0x3F
         conf12 = (cnti << 12) // (cnti + 2)                  # p12
@@ -1381,7 +1635,11 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
         (cs["last4"] >> 8) & 0xFF,
         torch.clamp(cs["wordlen"], max=15) * 4 + (cs["cls2reg"] & 3),
         cs["tag"] & 0xFF,
-    ] + _dyn3_gates(cs, pb, exp_byte, pdst, ptot), dim=1) \
+    ] + _dyn3_gates(cs, pb, exp_byte, pdst, ptot)
+        + (_dyn4_gates(g, C, cs, pb, x, above_l, b1) if g.mix_dyn4 else [])
+        # MIX_KIND: the block's content kind x the low class bits
+        + ([torch.clamp(pb["blk_kind"], 0, 7) * 8 + (cs["cls2reg"] & 7)]
+           if g.mix_kind else []), dim=1) \
         + C.mix1_off[None, :]                                # (B, ND)
     w1 = sh["w1"]
     w_dyn = w1[dyn_idx]                                      # (B, ND, NIN)
@@ -1405,12 +1663,16 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
         p1 = torch.sigmoid(dots)
         st1 = torch.clamp(dots, -ST_CLAMP, ST_CLAMP)         # (B, M1, 256)
 
+    if g.mix_aux:
+        # the LSTM/PPM/DMC stretches fed raw into layer 2 beside layer 1
+        st1 = torch.cat([st1, x[:, C.aux_taps]], dim=1)     # (B, M2IN, 256)
+    st_o2 = (srows[:, g.sbank_cols.index(1), 1] & 0xFF).long()
     clsg = cs["clsreg"] & 63
     dyn2_idx = torch.stack([
         cs["word"] & 63,
         longest,
         (cs["ohash"][:, 2] >> 17) & 0xFF,
-        (srows[:, g.sbank_cols.index(1), 1] & 0xFF).long(),  # order-2 state
+        st_o2,                                               # order-2 state
         torch.clamp(cs["linepos"], max=63) * 4 + (cs["cls2reg"] & 3),
     ], dim=1) + C.mix2_off[None, :]
     w2x_rows = sh["w2x"][dyn2_idx]                           # (B, 5, M2)
@@ -1438,44 +1700,65 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
         dot3 = (w3n.t()[None] * st2).sum(dim=1) + sh["bias3"][None]
         p_mix = torch.sigmoid(dot3)
 
-    # ---- APM chain: interpolated SSE reads, then the learned final blend
+    # ---- APM chain: interpolated SSE reads, then the final blend
     o2g = (cs["ohash"][:, 2] >> 17) & 0xFF
-    apm_idx = torch.stack([
+    apm_gates = [
         b1, 256 + longest, 320 + o2g, 576 + (cs["word"] & 0xFF),
-        832 + torch.clamp(cs["linepos"], max=63) * 4 + (cs["cls2reg"] & 3),
-    ], dim=1)                                                # (B, NA)
+        832 + torch.clamp(cs["linepos"], max=63) * 4 + (cs["cls2reg"] & 3)]
+    if g.apm3x:                          # the order-2 bit-history state
+        apm_gates.append(1088 + st_o2)
+    apm_idx = torch.stack(apm_gates, dim=1)                  # (B, NA)
     apm_rows = sh["apm"][apm_idx]                            # (B, NA, 33)
-    wa = sh["w_apm"][longest]                                # (B, 1+NA)
     p_tree12 = None
-    if port:
-        # 7-bit interpolation weights over p12 rows; the final blend
-        # yields the coder's p16 directly
-        tq = torch.clamp(st3 + 2048, 0, 4095)
-        tl = torch.clamp(tq >> 7, max=31).long()
-        frac = tq - (tl.to(torch.int32) << 7)                # 0..127
-        st_mix = st3
-    else:
-        st_mix = _stretch_f(p_mix)
-        tf = torch.clamp((st_mix + 8.0) * 2.0, 0.0, 31.999)
-        tl = tf.long()
-        frac = tf - tl.float()
-    pas = []
-    for j in range(N_APM):
-        r = apm_rows[:, j]
-        if port:
-            pas.append(torch.clamp((torch.gather(r, 1, tl) * (128 - frac)
-                                    + torch.gather(r, 1, tl + 1) * frac)
-                                   >> 7, 1, 4095))
-        else:
-            pas.append(torch.gather(r, 1, tl) * (1 - frac)
-                       + torch.gather(r, 1, tl + 1) * frac)
+    # the coder's p16 comes from st256 under PORT (the mixer's st3), else
+    # from f32 probabilities
+    st_mix = st3 if port else _stretch_f(p_mix)
+    tl, frac = _apm_pos(port, st_mix)
+    pas = [_apm_read(port, apm_rows[:, j], tl, frac)
+           for j in range(g.n_apm)]
     st_in = torch.stack([st_mix] + [st_of(p) for p in pas], dim=1)
+    if g.apm_fixed:
+        # the fixed blend 0.4 st(mix) + 0.6 st(mean of the APMs)
+        if port:
+            pa = torch.clamp(sum(pas) // g.n_apm, 1, 4095)
+            st_fin = ((26214 * st3) >> 16) + ((39322 * _st256(pa)) >> 16)
+        else:
+            pa = torch.clamp(sum(pas) * (1.0 / g.n_apm), 1e-6, 1 - 1e-6)
+            st_fin = 0.4 * st_mix + 0.6 * _stretch_f(pa)
+    else:
+        # learned, gated by the match state
+        wa = sh["w_apm"][longest]                            # (B, 1+NA)
+        st_fin = (_idot("bj,bjk->bk", wa, st_in) if port
+                  else torch.bmm(wa[:, None], st_in)[:, 0])
     if port:
-        st_fin = torch.clamp(_idot("bj,bjk->bk", wa, st_in), -3071, 3071)
+        st_fin = torch.clamp(st_fin, -3071, 3071)
+    sse2 = None
+    if g.sse2:
+        # the serial stage: one more interpolated row gated by the order-2
+        # bit-history state, then a learned 2-weight mix of its input and
+        # its output
+        rows2 = sh["apm"][g.sse2_base + st_o2]               # (B, 33)
+        tl2, fr2 = _apm_pos(port, st_fin if port
+                            else _stretch_f(torch.sigmoid(st_fin)))
+        pa2 = _apm_read(port, rows2, tl2, fr2)
+        ws = sh["w_sse"][st_o2]                              # (B, 2)
+        if port:
+            stf, stp = st_fin, _st256(pa2)
+            ws_hi, ws_lo = ws >> 8, ws & 255
+
+            def wmul(j, st):
+                return (((ws_hi[:, j:j + 1] * st) >> 8)
+                        + ((ws_lo[:, j:j + 1] * st) >> 16))
+            st_fin = torch.clamp(wmul(0, stf) + wmul(1, stp), -3071, 3071)
+        else:
+            stf = torch.clamp(st_fin, -ST_CLAMP, ST_CLAMP)
+            stp = _stretch_f(pa2)
+            st_fin = ws[:, 0:1] * stf + ws[:, 1:2] * stp
+        sse2 = dict(g=st_o2, rows=rows2, tl=tl2, frac=fr2, stf=stf, stp=stp)
+    if port:
         p_tree = squash16_lut(st_fin + 4096)                 # p16
         p_tree12 = squash12_lut(st_fin + 4096)
     else:
-        st_fin = torch.bmm(wa[:, None], st_in)[:, 0]
         p_tree = torch.sigmoid(st_fin)
 
     aux = dict(rowi=rowi, rows=rows, ck_exp=ck_exp, hdr=hdr, b1=b1,
@@ -1491,7 +1774,7 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
                st_in=st_in, p_tree=p_tree, p_tree12=p_tree12, rx_b=rx_b,
                rx_conf=rx_conf,
                rx_alive=rx_alive, rx_bit=rx_bit, dmc_walk=dmc_walk,
-               lms=lms)
+               lms=lms, vmx=vmx, jx=jx, jrows=jrows, sse2=sse2)
     return p_tree, aux
 
 
@@ -1523,10 +1806,14 @@ def _slot_update_int(slots, target_i):
     return (stretch13_lut(newp) << 18) | (newp << 6) | newc
 
 
-def _update_tree_b(cfg, g, C, sh, pb, aux, byte):
+def _update_tree_b(cfg, g, C, sh, pb, aux, byte, t):
     """Adapt every model along each block's 8-node tree path (MIX_NORM,
-    STAT_NORM, count-normalized final blend; integer twins under PORT)."""
+    STAT_NORM, count-normalized final blend; integer twins under PORT).
+    t: the byte index, a 0-d device tensor (MIX_TAU's rate decays with
+    it, computed on the device)."""
     lr = MIX_LR
+    if g.mix_tau:
+        lr = MIX_LR * torch.rsqrt(1.0 + t.float() / g.mix_tau)
     level, node = C.level, C.node
     B = byte.shape[0]
     dev = byte.device
@@ -1609,6 +1896,17 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte):
     if g.ppm_ck:
         _set_rows(sh["ppm_ck"].view(-1, 1), pflat, aux["pck_exp"][..., None])
 
+    # ---- JVAL: bump the coded byte's count in each tier's row (halve the
+    # row first when the count would overflow a byte); blocks off the
+    # JPEG planes write nothing
+    for key, rows, ctx in zip(("jval", "jval2"), aux["jrows"],
+                              ("jctx", "jctx2")):
+        obs_j = torch.gather(rows, 1, byte[:, None])
+        jr = torch.where(obs_j >= 256 - 4, rows >> 1, rows)
+        jr = jr + torch.where(node[None, :] == byte[:, None], 4, 0
+                              ).to(torch.uint8)
+        _set_rows_where(sh[key], aux["jx"][ctx], jr, aux["jx"]["jvalid"])
+
     # ---- SEE: escape estimates toward observed escape events
     obs_eff = torch.gather(aux["pcnt_eff"], 2, byte[:, None, None].expand(
         B, g.n_ppm, 1))[:, :, 0]
@@ -1652,11 +1950,20 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte):
         st13 = stretch13_lut(sh["sbank_p"][s_ar, nxt8])
     else:
         errs = t8[:, None, :] - pm
+        rate = SBANK_RATE
+        if g.sbank_adapt:
+            # a state seen c times learns at max(SBANK_RATE, 1/(c+2))
+            rate = torch.clamp(1.0 / (sh["sbank_c"] + 2.0), min=SBANK_RATE
+                               )[s_ar, s8]
         sb_cnt = _scatter_add(NS * 256, sflat, torch.ones_like(errs))
-        sb_acc = _scatter_add(NS * 256, sflat, SBANK_RATE * errs)
+        sb_acc = _scatter_add(NS * 256, sflat, rate * errs)
         sh["sbank_p"] = torch.clamp(
             sh["sbank_p"] + (sb_acc / torch.clamp(sb_cnt, min=1.0)
                              ).view(NS, 256), 1e-4, 1 - 1e-4)
+        if g.sbank_adapt:                # one visit per step per state
+            sh["sbank_c"] = torch.clamp(
+                sh["sbank_c"] + (sb_cnt > 0).float().view(NS, 256),
+                max=1024.0)
         p_nxt = sh["sbank_p"][s_ar, nxt8]
         st13 = torch.clamp(_stretch_f(p_nxt) * 256.0 + 4096.0, 0, 8191
                            ).int()
@@ -1700,6 +2007,17 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte):
        aux["lenb2"])
     mc("runx_conf", aux["rx_bit"], aux["rx_alive"], aux["rx_conf"],
        aux["rx_b"])
+    vmx = aux["vmx"]
+    if vmx is not None:
+        # VMATCH: the shared confidence per matched-prefix length, the mean
+        # over the blocks whose line-above byte was alive (STAT_NORM)
+        v_af = vmx["valive"].float()
+        vderr = ((vmx["vexp"] == byte).float() - vmx["vconf"]) * 0.03 * v_af
+        voh = (C.ar32[None, :] == vmx["vlml"][:, None]).float()
+        d_vm = (voh * vderr[:, None]).sum(dim=0) \
+            / torch.clamp((voh * v_af[:, None]).sum(dim=0), min=1.0)
+        sh["vmatch_conf"] = torch.clamp(sh["vmatch_conf"] + d_vm, 1e-3,
+                                        1 - 1e-3)
     lms = aux["lms"]
     if lms is not None:
         # the shared confidence per error bucket (STAT_NORM mean; at LMS=2
@@ -1760,14 +2078,26 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte):
     errp = (t8 - p_tree_p) * APM_RATE
     j33 = C.j33[None, None, :]
 
-    # every APM row is read at the same (tl, frac): one in-row delta
-    tl_p = torch.gather(aux["apm_tl"], 1, n8)
-    f_p = torch.gather(aux["apm_frac"], 1, n8)
-    d_apm = ((j33 == tl_p[:, :, None]).float() * ((1 - f_p) * errp)[:, :, None]
-             + (j33 == (tl_p + 1)[:, :, None]).float()
-             * (f_p * errp)[:, :, None]).sum(dim=1)
-    newapm = torch.clamp(aux["apm_rows"] + d_apm[:, None], 1e-4, 1 - 1e-4)
-    _set_rows(sh["apm"], aux["apm_idx"], newapm)
+    def row_delta(tl, frac):
+        tl_p = torch.gather(tl, 1, n8)
+        f_p = torch.gather(frac, 1, n8)
+        return ((j33 == tl_p[:, :, None]).float()
+                * ((1 - f_p) * errp)[:, :, None]
+                + (j33 == (tl_p + 1)[:, :, None]).float()
+                * (f_p * errp)[:, :, None]).sum(dim=1)
+
+    # the parallel rows are read at one (tl, frac): one in-row delta; the
+    # SSE2 row at its own
+    newapm = torch.clamp(aux["apm_rows"] + row_delta(
+        aux["apm_tl"], aux["apm_frac"])[:, None], 1e-4, 1 - 1e-4)
+    apm_idx = aux["apm_idx"]
+    sse2 = aux["sse2"]
+    if sse2 is not None:
+        new2 = torch.clamp(sse2["rows"] + row_delta(sse2["tl"], sse2["frac"]),
+                           1e-4, 1 - 1e-4)
+        newapm = torch.cat([newapm, new2[:, None]], dim=1)
+        apm_idx = torch.cat([apm_idx, g.sse2_base + sse2["g"][:, None]], 1)
+    _set_rows(sh["apm"], apm_idx, newapm)
 
     # ---- final blend weights (match-state gated, count-normalized)
     err_f = (target - aux["p_tree"]) * on_path
@@ -1777,6 +2107,15 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte):
     sh["w_apm"] = torch.clamp(
         sh["w_apm"] + lr * acc / torch.clamp(cnt[:, None], min=1.0),
         -4.0, 4.0)
+    if sse2 is not None:
+        # the SSE2 stage's mixer, the mean over the blocks of each gate
+        ds = torch.stack([(err_f * sse2["stf"]).sum(dim=1),
+                          (err_f * sse2["stp"]).sum(dim=1)], dim=1)
+        cnt_s = _scatter_add(256, sse2["g"], ones)
+        acc_s = _scatter_add(256, sse2["g"], ds)
+        sh["w_sse"] = torch.clamp(
+            sh["w_sse"] + lr * acc_s / torch.clamp(cnt_s[:, None], min=1.0),
+            -4.0, 4.0)
     return sh
 
 
@@ -1844,22 +2183,38 @@ def _update_mixers_int(g, C, sh, aux, target_i, onp_i, n8, t8_i):
             >> 12)                                           # 0.02 * 4096
     j33 = C.j33[None, None, :]
 
-    # every APM row is read at the same (tl, frac): one in-row delta
-    tl_p = torch.gather(aux["apm_tl"], 1, n8)
-    f_p = torch.gather(aux["apm_frac"], 1, n8)
-    d_apm = ((j33 == tl_p[:, :, None]).to(i32)
-             * (((128 - f_p) * errp) >> 7)[:, :, None]
-             + (j33 == (tl_p + 1)[:, :, None]).to(i32)
-             * ((f_p * errp) >> 7)[:, :, None]).sum(dim=1).to(i32)
-    sh["apm"] = torch.clamp(sh["apm"] + _scatter_add(
-        APM_ROWS, aux["apm_idx"], d_apm[:, None].expand(-1, N_APM, -1)),
-        1, 4095)
+    def row_delta(tl, frac):
+        tl_p = torch.gather(tl, 1, n8)
+        f_p = torch.gather(frac, 1, n8)
+        return ((j33 == tl_p[:, :, None]).to(i32)
+                * (((128 - f_p) * errp) >> 7)[:, :, None]
+                + (j33 == (tl_p + 1)[:, :, None]).to(i32)
+                * ((f_p * errp) >> 7)[:, :, None]).sum(dim=1).to(i32)
+
+    # the parallel rows are read at one (tl, frac): one in-row delta; the
+    # SSE2 row at its own
+    d_apm = row_delta(aux["apm_tl"], aux["apm_frac"])[:, None].expand(
+        -1, g.n_apm, -1)
+    apm_idx = aux["apm_idx"]
+    sse2 = aux["sse2"]
+    if sse2 is not None:
+        d_apm = torch.cat([d_apm, row_delta(sse2["tl"], sse2["frac"])
+                           [:, None]], dim=1)
+        apm_idx = torch.cat([apm_idx, g.sse2_base + sse2["g"][:, None]], 1)
+    sh["apm"] = torch.clamp(sh["apm"] + _scatter_add(g.apm_rows, apm_idx,
+                                                     d_apm), 1, 4095)
 
     # ---- final blend weights (match-state gated, count-normalized)
     err_f = (target_i * 4096 - aux["p_tree12"]) * onp_i
     dwa = ieinsum("bk,bjk->bj", err_f, aux["st_in"]) >> 8
     sh["w_apm"] = step(sh["w_apm"], rows_mean(64, aux["longest"], dwa),
                        clip=262144)
+    if sse2 is not None:
+        # the SSE2 stage's mixer (|sum| < 8 * 4096 * 3072 per block)
+        ds = torch.stack([ieinsum("bk,bk->b", err_f, sse2["stf"]),
+                          ieinsum("bk,bk->b", err_f, sse2["stp"])], 1) >> 8
+        sh["w_sse"] = step(sh["w_sse"], rows_mean(256, sse2["g"], ds),
+                           clip=262144)
     return sh
 
 
@@ -1967,7 +2322,7 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device):
             byte_acc = byte_acc * 2 + bit
         byte = byte_acc & 255
 
-        sh = _update_tree_b(cfg, g, C, sh, pb, aux, byte)
+        sh = _update_tree_b(cfg, g, C, sh, pb, aux, byte, t)
         lms = aux["lms"]
         if lms is not None:                  # the block's own taps
             lerr = (byte.float() - 128.0) * (1.0 / 128.0) - lms["pred"]

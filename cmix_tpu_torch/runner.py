@@ -10,16 +10,21 @@ did while encoding.
 
 The port codes the fast profile at two gate sets (the defaults and the
 bench speed profile) and the portable integer profile (PORT=1 on top of
-the defaults, ``--portable``), on any content: ``compress`` runs the
+the defaults, ``--portable``), the defaults of either profile with the
+off-by-default mechanisms of ``engine.make_gates`` on top, on any
+content.  The CLI takes the model gates from the environment, as the JAX
+package's does (``SSE2=1 python -m cmix_tpu_torch.runner c ...``; the
+archive's gate record pins them for decode).  ``compress`` runs the
 content transforms (``preprocess/wrt.transform``: E8/E9 on x86 code, the
 24-bit color decorrelation, JPEG recoding), routes the content gates on
 top of the caller's (X86X=2 for x86 code, GRID2=1 for strided media or a
-recoded JPEG, LMS=2 for media outside PORT, JPEGX=1 for a recoded JPEG:
-the JAX package's defaults) and writes the segment table; ``decompress``
-reads it and inverts the transforms.  With a dictionary (``--dict PATH``,
-or ``auto`` for the port's copy of the shipped ``data/english.dic``) text
-is WRT-coded where that shrinks it, WRTW=1 is routed with it, and every
-coding group starts from the shared state pretrained on the dictionary
+recoded JPEG, LMS=2 for media outside PORT, JPEGX=1 for a recoded JPEG,
+JVAL=$JVAL_ROUTE with it: the JAX package's defaults) and writes the
+segment table; ``decompress`` reads it and inverts the transforms.  With
+a dictionary (``--dict PATH``, or ``auto`` for the port's copy of the
+shipped ``data/english.dic``) text is WRT-coded where that shrinks it,
+WRTW ($WRTW_ROUTE, 1 by default) is routed with it, and every coding
+group starts from the shared state pretrained on the dictionary
 (``engine.make_pretrainer``, cached by ``utils/checkpoint.py``); the
 header carries the dictionary's fingerprint, and decode needs the same
 file.  A portable archive is byte-identical to the JAX package's and
@@ -44,8 +49,9 @@ import torch
 
 from cmix_tpu_torch.version import FORMAT_VERSION, MAGIC
 from cmix_tpu_torch.engine import (
-    EngineConfig, FormatError, MODE_DECODE, MODE_ENCODE, gates_from_blob,
-    init_perblock, init_shared, make_gates, make_transcoder, resolve_device)
+    GATE_NAMES, EngineConfig, FormatError, MODE_DECODE, MODE_ENCODE,
+    gates_from_blob, init_perblock, init_shared, make_gates, make_transcoder,
+    resolve_device)
 from cmix_tpu_torch.contexts.hashes import build_wrtw_tables
 from cmix_tpu_torch.preprocess import wrt
 from cmix_tpu_torch.utils.checkpoint import (
@@ -115,17 +121,31 @@ def _split_blocks(data: bytes, n: int):
 
 def _routed_gates(seg_meta, port, dictionary):
     """The content-routed gate values (cmix_tpu/runner.py compress): on
-    exactly when the segment table holds the content they model; WRTW=1
-    when the payload was transformed and a dictionary given (whatever the
+    exactly when the segment table holds the content they model; WRTW when
+    the payload was transformed and a dictionary given (whatever the
     transform: an EXE-only input coded with a dictionary routes it too).
-    JVAL stays off (no JVAL route by default)."""
+    As in the JAX package two environment variables set the routed values:
+    WRTW_ROUTE (default 1) WRTW's, JVAL_ROUTE (default 0: off) JVAL's,
+    routed with JPEGX."""
     types = {e[0] for e in seg_meta or ()}
-    return {"JPEGX": int(wrt.SEG_JPEGC in types),
+    jpegx = int(wrt.SEG_JPEGC in types)
+    return {"JPEGX": jpegx,
             "GRID2": int(bool(types & set(wrt._STRIDE_SEGS))),
-            "X86X": 2 * (wrt.SEG_EXE in types), "JVAL": 0,
-            "WRTW": int(seg_meta is not None and dictionary is not None),
+            "X86X": 2 * (wrt.SEG_EXE in types),
+            "JVAL": int(os.environ.get("JVAL_ROUTE", "0")) * jpegx,
+            "WRTW": (int(os.environ.get("WRTW_ROUTE", "1"))
+                     if seg_meta is not None and dictionary is not None
+                     else 0),
             "LMS": 2 * (not port and any(3 <= e[0] <= 5 and e[1]
                                          for e in seg_meta or ()))}
+
+
+def env_gates(environ=None):
+    """The model gates set in the environment (``os.environ`` by default):
+    {name: value} of every gate name present, as the JAX package's CLI
+    reads them at import."""
+    environ = os.environ if environ is None else environ
+    return {n: environ[n] for n in GATE_NAMES if n in environ}
 
 
 def _block_fields(seg_meta, nb, n):
@@ -235,8 +255,11 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
     text transform where it shrinks the payload, and pretraining.
     gates: mapping of gate name -> value (missing = default); the port
     accepts the defaults, ``engine.BENCH_GATES``, and PORT=1 (with any
-    ILSTM_LRX/ILSTM_ADAM) on top of the defaults.  The content-routed
-    gates are then set from the content, whatever the caller gave.
+    ILSTM_LRX/ILSTM_ADAM) on top of the defaults, each with the
+    off-by-default mechanisms ``engine.make_gates`` lists.  The
+    content-routed gates (JVAL among them) are then set from the content
+    and ``_routed_gates``'s environment variables, whatever the caller
+    gave.
     meter: a ``utils.profiling.Meter`` the transcoder's phases feed;
     show_progress: a percentage ticker on stderr."""
     if resume_path is not None:
@@ -245,7 +268,9 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
     if cfg.dmc_nodes & (cfg.dmc_nodes - 1):
         raise FormatError(f"dmc_nodes={cfg.dmc_nodes} must be 0 or a power "
                           "of two (the archive header stores its log2)")
-    g = make_gates(gates)
+    # the caller's JVAL is replaced by the routed one: JVAL without JPEGX
+    # is no error here
+    g = make_gates({k: v for k, v in (gates or {}).items() if k != "JVAL"})
     dev = resolve_device(device)
     d, dict_bytes, fp, tables = (_load_dictionary(dictionary)
                                  if dictionary is not None
@@ -442,6 +467,10 @@ def main(argv=None):
     with open(args.input, "rb") as f:
         data = f.read()
     t0 = time.time()
+    # the model gates: the environment's (decode reads the archive's)
+    gates = env_gates()
+    if args.portable:
+        gates["PORT"] = 1
     if args.mode in ("c", "t"):
         horizon = (int(args.horizon) if args.horizon != "auto"
                    else (4 if len(data) <= (256 << 10) else 8))
@@ -451,7 +480,7 @@ def main(argv=None):
         with trace(args.profile):
             out = compress(data, cfg, max_batch=args.max_batch,
                            dictionary=args.dictionary,
-                           gates={"PORT": 1} if args.portable else None,
+                           gates=gates,
                            device=args.device, resume_path=args.resume,
                            meter=meter, show_progress=True)
         if meter:

@@ -14,16 +14,20 @@ Port of cmix_tpu/utils/profiling.py (``trace``, ``Meter``, ``Progress``):
 The byte-step profiler (not in the JAX package):
 
     python -m cmix_tpu_torch.utils.profiling [--batch 256] [--steps 8]
-        [--gates bench|bench-x86|default|routed|portable|wrtw]
+        [--gates bench|bench-x86|default|routed|portable|wrtw|gated|
+        gated-portable] [--widths bench|cli]
 
-runs the byte step of the bench speed profile (bench widths, the blocks
-of ``testdata/bench4m.raw``), or of another gate set at the same widths:
+runs the byte step of the bench speed profile (bench widths, or the
+runner CLI's, on the blocks of ``testdata/bench4m.raw``), or of another
+gate set:
 the bench set with X86X=2 (what the runner routes for bench4m.raw, whose
 detector finds x86 code), the default gates, the default gates with the
 media and JPEG routes (GRID2=1, LMS=2, JPEGX=1; every block marked as
 24-bit image, so the LMS votes), the portable profile (PORT=1 on the
-default gates), or the default gates with WRTW=1 (what the runner routes
-for a dictionary-coded archive: the WRT codeword tracker), as the
+default gates), the default gates with WRTW=1 (what the runner routes
+for a dictionary-coded archive: the WRT codeword tracker), or every
+off-by-default mechanism the port runs (``GATED``, ``GATED_PORT``) with
+JPEGX, GRID2 and JVAL=2, in either profile, as the
 transcoder runs it: ``engine.make_segment_fn``'s captured CUDA graph, then
 the eager step (``graph=False``).  Each runs one segment of ``--steps``
 steps to warm up (the graph's capture included), times one more on the
@@ -142,12 +146,28 @@ class Progress:
 # the device functions of csrc/dmc_fused.cu and csrc/dmc_counts.cu, found
 # by name among the profiler's events
 DMC_KERNELS = ("dmc_fused_kernel", "dmc_counts_kernel")
+# every off-by-default mechanism the port runs, on the default gates of
+# the fast profile, and of the portable one (without those its rules
+# exclude); JVAL runs with JPEGX, routed with it by JVAL_ROUTE
+GATED = {"SSE2": 1, "APM3X": 1, "MIX_DYN4": 1, "MIX_KIND": 1, "MIX_AUX": 1,
+         "SBANK_ADAPT": 1, "VMATCH": 1, "APM_FIXED": 1, "MIX_TAU": 1024.0,
+         "MIX_BOOST": 2.0, "MIX_BOOST_N": 64.0}
+GATED_PORT = dict({k: v for k, v in GATED.items()
+                   if k in ("SSE2", "APM3X", "MIX_DYN4", "MIX_KIND",
+                            "MIX_AUX", "APM_FIXED")}, PORT=1)
+_JPEG_ROUTES = {"JPEGX": 1, "GRID2": 1, "JVAL": 2}
 GATE_SETS = {"bench": E.BENCH_GATES,
              "bench-x86": dict(E.BENCH_GATES, X86X=2),
              "default": {},
              "routed": {"GRID2": 1, "LMS": 2, "JPEGX": 1},
              "portable": {"PORT": 1},
-             "wrtw": {"WRTW": 1}}
+             "wrtw": {"WRTW": 1},
+             "gated": dict(GATED, **_JPEG_ROUTES),
+             "gated-portable": dict(GATED_PORT, **_JPEG_ROUTES)}
+# the byte step's widths: bench.py's, or the runner CLI's (tbits 18, mbits
+# 20, pbits 20, LSTM 256, 16384 DMC nodes) at its 16384-byte block
+WIDTHS = {"bench": dict(tbits=18, mbits=18, ibits=16),
+          "cli": dict(tbits=18, mbits=20, ibits=16, pbits=20)}
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                  "cudaGraphLaunch")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -163,15 +183,16 @@ def _on_device(evt):
     return str(getattr(evt, "device_type", "")).endswith("CUDA")
 
 
-def profile_steps(batch=256, steps=8, gates="bench", graph=True):
-    """Profile ``steps`` byte steps at bench widths as the transcoder runs
-    them (one segment of ``steps`` after one of warm-up, timed, then one
-    traced) -> the JSON-ready dict the module's docstring lists."""
+def profile_steps(batch=256, steps=8, gates="bench", graph=True,
+                  widths="bench"):
+    """Profile ``steps`` byte steps at ``widths`` (``WIDTHS``) as the
+    transcoder runs them (one segment of ``steps`` after one of warm-up,
+    timed, then one traced) -> the JSON-ready dict the module's docstring
+    lists."""
     dev = E.resolve_device("cuda")
     g = E.make_gates(GATE_SETS[gates])
-    cfg = E.EngineConfig(block_size=16384, tbits=18, mbits=18, ibits=16,
-                         lstm_hidden=256, seg_size=steps, dmc_nodes=16384,
-                         lstm_horizon=4)
+    cfg = E.EngineConfig(block_size=16384, lstm_hidden=256, seg_size=steps,
+                         dmc_nodes=16384, lstm_horizon=4, **WIDTHS[widths])
     raw = np.fromfile(os.path.join(_ROOT, "testdata", "bench4m.raw"),
                       dtype=np.uint8)
     lanes = raw[:batch * (len(raw) // batch)].reshape(batch, -1)
@@ -222,7 +243,7 @@ def profile_steps(batch=256, steps=8, gates="bench", graph=True):
     busy_ms = busy_us / steps / 1e3
     return {
         "device": torch.cuda.get_device_name(0), "batch": batch,
-        "gates": gates, "steps": steps,
+        "gates": gates, "widths": widths, "steps": steps,
         "step": "graph" if seg.graph else "eager",
         "warm_up_s": warm_s,
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
@@ -246,10 +267,11 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=8,
                     help="steps per segment (a power of two)")
     ap.add_argument("--gates", choices=sorted(GATE_SETS), default="bench")
+    ap.add_argument("--widths", choices=sorted(WIDTHS), default="bench")
     args = ap.parse_args(argv)
     for graph in (True, False):
         print(json.dumps(profile_steps(args.batch, args.steps, args.gates,
-                                       graph)), flush=True)
+                                       graph, args.widths)), flush=True)
 
 
 if __name__ == "__main__":

@@ -68,12 +68,13 @@ def test_empty_input_roundtrip():
 
 
 @pytest.mark.parametrize("gates", [
-    {"X86X": 1}, {"PORT": 1, "CTX4": 0}, {"LMS": 1}, {"MIX_AUX": 1},
-    {"JVAL": 1},
+    {"X86X": 1}, {"PORT": 1, "CTX4": 0}, {"LMS": 1},
+    {"MIX_NORM": 0},                     # a value knob
+    {"CNT_CAP": 30},
     {"DMC_LEVELS": 7},                   # a part of the bench set alone
     dict(E.BENCH_GATES, CTX4=1),
     dict(E.BENCH_GATES, PORT=1),         # PORT only on the default gates
-    {"PORT": 1, "SSE2": 1}])
+    dict(E.BENCH_GATES, SSE2=1)])        # a mechanism on the bench gates
 def test_unported_gate_sets_raise(gates):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         E.make_gates(gates)

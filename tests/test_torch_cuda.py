@@ -14,6 +14,7 @@ import chip_smoke
 from cmix_tpu_torch import engine as E
 from cmix_tpu_torch import runner
 from cmix_tpu_torch.models import dmc
+from cmix_tpu_torch.utils.profiling import GATE_SETS
 
 pytestmark = pytest.mark.cuda
 
@@ -153,7 +154,8 @@ def _lanes(b, n, off=0):
     return np.frombuffer(raw, np.uint8).reshape(b, n).copy()
 
 
-@pytest.mark.parametrize("gates", [{}, {"PORT": 1}])
+@pytest.mark.parametrize("gates", [{}, {"PORT": 1}, GATE_SETS["gated"],
+                                   GATE_SETS["gated-portable"]])
 def test_graph_archives_equal_the_eager_steps(gpu, gates):
     """Two groups of 3 lanes through one transcoder (the second copied
     into the captured graph's buffers), four segments each: the graph's

@@ -9,6 +9,7 @@ import torch
 import torch_parity
 from cmix_tpu_torch import engine as E
 from cmix_tpu_torch.utils.checkpoint import _leaves, clone_state
+from cmix_tpu_torch.utils.profiling import GATE_SETS
 
 CPU = torch.device("cpu")
 B = 3
@@ -25,7 +26,10 @@ def _group(cfg, g, off=0):
             torch.as_tensor(data.T.copy()))
 
 
-@pytest.mark.parametrize("env", [{}, {"PORT": 1}])
+# the last two: every off-by-default mechanism of each profile, whose new
+# leaves (w_sse, sbank_c, jval, jval2) the body writes back as well
+@pytest.mark.parametrize("env", [{}, {"PORT": 1}, GATE_SETS["gated"],
+                                 GATE_SETS["gated-portable"]])
 def test_static_step_equals_the_plain_step(env):
     cfg = E.EngineConfig(**dict(torch_parity.RUNNER_KW, seg_size=16))
     g = E.make_gates(env)

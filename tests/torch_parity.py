@@ -149,13 +149,15 @@ def routed_lanes(kind, fields, warm):
     return data, fields
 
 
-def step_parity(env, data, fields=None, warm=30):
+def step_parity(env, data, fields=None, warm=30, states=False):
     """``warm`` byte steps of the JAX engine on ``data`` ((B, >warm) uint8
     lanes), the state carried to the port (``convert``), then one step of
     both: the coded bits exact; under PORT every leaf exact, else integer
     leaves exact (packed slot fields within one rounding step), float
     leaves within 2e-5 (the LSTM's cumulative distribution x 2^16: 0.05).
-    ``fields``: per-block leaves set before the warm-up ({name: array})."""
+    ``fields``: per-block leaves set before the warm-up ({name: array}).
+    Returns the port's gates, and with ``states`` the JAX package's shared
+    state before and after the compared step (flat numpy leaves)."""
     from cmix_tpu import engine as je
     from cmix_tpu_torch import engine as E
     cpu = torch.device("cpu")
@@ -176,6 +178,7 @@ def step_parity(env, data, fields=None, warm=30):
         sh, pb, cd, _ = step_j(sh, pb, cd, comp, jnp.asarray(data[:, t]), t,
                                mode)
     state = jax.device_get((sh, pb, cd))
+    before = _flat(state[0])
     sh_t, pb_t, cd_t = convert.from_jax_state(*state, device="cpu")
     back = _flat(dict(zip("spc", convert.to_numpy(sh_t, pb_t, cd_t))))
     ref0 = _flat(dict(zip("spc", state)))
@@ -207,6 +210,8 @@ def step_parity(env, data, fields=None, warm=30):
             np.testing.assert_allclose(x, r, atol=tol, rtol=0, err_msg=k)
         else:
             _fields_close(k, x, r)
+    if states:
+        return g, before, _flat(jax.device_get(sh))
     return g
 
 
@@ -359,6 +364,36 @@ def make_routed_input():
                      make_jpeg(32, 16, quality=100)])
 
 
+def make_gated_input():
+    """The gated fixture's bytes: the routed fixture (x86 code, a BMP, a WAV
+    and a JPEG, whose coefficient planes JVAL models) and ~1 KiB of text
+    with table rows (the lines above that VMATCH votes from)."""
+    with open("testdata/routed.raw", "rb") as f:
+        routed = f.read()
+    names = (b"alpha", b"beta", b"gamma", b"delta", b"omega", b"sigma")
+    rows = b"".join(b"| %-5s | %4d | %-4s |\n" % (names[i % 6], i * 37 % 1000,
+                                                  b"ok" if i % 3 else b"late")
+                    for i in range(36))
+    return (routed + b"\nThe table below lists each batch and its count.\n"
+            + rows + b"Rows marked late were counted twice.\n")
+
+
+def gated_fixture():
+    """(input bytes, the JAX package's PORT=1 archive of it) for the
+    committed gated fixture: every off-by-default mechanism of the portable
+    profile, JVAL=2 routed by JVAL_ROUTE."""
+    import chip_smoke
+    from cmix_tpu import engine as je
+    from cmix_tpu_torch.utils.profiling import GATED_PORT
+    with open(chip_smoke.GATED_FIXTURE, "rb") as f:
+        data = f.read()
+    with chip_smoke.EnvVar("JVAL_ROUTE", chip_smoke.JVAL_ROUTE), \
+            jax_runner_gates(GATED_PORT) as jr:
+        arc = jr.compress(data, je.EngineConfig(**chip_smoke.GATED_SMALL),
+                          max_batch=chip_smoke.GATED_BATCH)
+    return data, arc
+
+
 def routed_fixture():
     """(input bytes, the JAX package's PORT=1 archive of it) for the
     committed routed fixture that chip_smoke.py decodes and re-encodes."""
@@ -384,6 +419,17 @@ if __name__ == "__main__" and sys.argv[1:] == ["--write-routed-fixture"]:
         f.write(arc)
     print(f"{chip_smoke.ROUTED_FIXTURE}: {len(data)} bytes; "
           f"{chip_smoke.ROUTED_ARCHIVE}: {len(arc)} bytes")
+elif __name__ == "__main__" and sys.argv[1:] == ["--write-gated-fixture"]:
+    # python tests/torch_parity.py --write-gated-fixture: (re)write the gated
+    # fixture's input and the JAX package's PORT=1 archive of it
+    import chip_smoke
+    with open(chip_smoke.GATED_FIXTURE, "wb") as f:
+        f.write(make_gated_input())
+    data, arc = gated_fixture()
+    with open(chip_smoke.GATED_ARCHIVE, "wb") as f:
+        f.write(arc)
+    print(f"{chip_smoke.GATED_FIXTURE}: {len(data)} bytes; "
+          f"{chip_smoke.GATED_ARCHIVE}: {len(arc)} bytes")
 elif __name__ == "__main__" and sys.argv[1:] == ["--write-fixture"]:
     # python tests/torch_parity.py --write-fixture: (re)write the portable
     # fixture's archive with the JAX package on the CPU
