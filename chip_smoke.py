@@ -55,7 +55,21 @@ without one.  Phases, each of which raises on failure:
    ``GATED_PORT``, the mechanisms the portable profile allows) decoded and
    re-encoded byte-identically on the card; the portable profile at CLI
    widths, its archive held to the JAX package's sha256;
-9. dictionary mode (``--dict``: the WRT text transform, WRTW=1 routed, the
+9. the gates path on the gated fixture under the remaining gate values, two
+   sets of ``utils/profiling.py``: LEAN (the default-on components off
+   together) and KNOBS (the value knobs moved together, DMC_LEVELS=4 among
+   them): per set the fast profile at CLI widths (exact round trip,
+   identical re-encode, launches > 0 both ways, the set in the gate record)
+   and at small widths against the CPU's archive (sizes within 0.1%), the
+   portable profile at CLI widths held to the JAX package's sha256; for
+   KNOBS the JAX package's PORT=1 archive ``testdata/knobs.tcmx`` decoded
+   and re-encoded byte-identically on the card;
+10. ``--resume`` on the card: a compress interrupted after its first coding
+    group (the journal saver raises), then resumed: it codes only the other
+    groups, writes the uninterrupted archive and removes the journal; a
+    fast-profile journal the CPU wrote is ignored on the card (every group
+    coded again, the same archive);
+11. dictionary mode (``--dict``: the WRT text transform, WRTW=1 routed, the
    shared state pretrained on the dictionary at B=1 and cached) with
    ``testdata/mini.dic`` (english.dic's first 128 lines) on a text prefix,
    in a fresh pretraining cache: the fast profile at CLI widths (the encode
@@ -64,18 +78,19 @@ without one.  Phases, each of which raises on failure:
    re-encode, flags 3 and WRTW=1 in the gate record), then the portable
    profile at CLI widths with an empty cache, its archive held to the JAX
    package's sha256 and decoded exactly;
-10. ms per byte step as the transcoder runs it (one segment after one of
+12. ms per byte step as the transcoder runs it (one segment after one of
     warm-up), through the captured graph and through the eager step: the
     bench speed profile at B=256 and B=1 and bench widths, and the default
     and portable profiles at B=16 and B=256, CLI widths; then through the
     graph at B=256 and CLI widths with and without the gated path's
-    mechanisms, each profile: wall, device busy, idle share and kernels
-    per step (``utils/profiling.py``);
-11. the graph (``engine.make_segment_fn``: one byte step captured as a
-    CUDA graph and replayed, the default on the card, so phases 4-9 ran
+    mechanisms, each profile, and under LEAN and KNOBS: wall, device busy,
+    idle share and kernels per step (``utils/profiling.py``);
+13. the graph (``engine.make_segment_fn``: one byte step captured as a
+    CUDA graph and replayed, the default on the card, so phases 4-11 ran
     through it): the main path's archives of phases 4 and 6 (fast and
-    portable, CLI widths) against the eager step's, byte-identical (the
-    portable one thus still the JAX package's); a dictionary replay at B=1
+    portable, CLI widths) and the gates path's fast archives of both sets
+    (phase 9) against the eager step's, byte-identical (the portable one
+    thus still the JAX package's); a dictionary replay at B=1
     through the graph and the eager step in both profiles, the states
     equal (integer leaves exact, floats within 2e-5); wall ms (untraced
     and traced), device busy ms and idle share per step, graph and eager,
@@ -83,15 +98,16 @@ without one.  Phases, each of which raises on failure:
     and one bench-width segment (2048 steps x 256 lanes of bench4m.raw)
     encoded and decoded through ``engine.make_transcoder`` with a Meter,
     its report printed (MB/s each way);
-12. a ``kernels:`` summary, the JSON kernel line, the card line, and last
+14. a ``kernels:`` summary, the JSON kernel line, the card line, and last
     the contract line ``{"ok": true, "device": {...}}``.
 
-Each coding path (4-9, 11) is driven with the kernels' launch counts set
+Each coding path (4-11, 13) is driven with the kernels' launch counts set
 to 0 just before it and read just after; a graph's replays count the
 launches its capture recorded (the warm-up's launches, on copies of the
 state, and the capture's host calls are not counted).  The JSON line sums
-them (and gives the routed path's, the gated path's, the dictionary path's
-and its pretraining's sums on their own).  Every phase prints its seconds.
+them (and gives the routed path's, the gated path's, the gates path's, of
+them at walk depths 8 and 4, the dictionary path's and its pretraining's
+sums on their own).  Every phase prints its seconds.
 """
 
 import hashlib
@@ -133,7 +149,7 @@ STEP_STEPS = 8
 # ran at 0.08-0.13 s a step there)
 BENCH_SEG = 2048
 PROFILE_STEPS = 8
-DICT_EAGER_BYTES = 256
+DICT_EAGER_BYTES = 128
 # the portable fixture: the JAX package's PORT=1 archive of PORT_FIXTURE,
 # made on the CPU at these small widths in one coding group
 # (tests/test_torch_port_fixture.py regenerates it and holds it equal)
@@ -191,6 +207,25 @@ GATED_BLOCK, GATED_PORT_BLOCK = 256, 128
 JVAL_ROUTE = "2"
 GATED_PORT_SHA256 = ("5ec5a09a06d08629bbbf10c291b41ccc"
                      "c85d1a58a403ae00b4fabbe7bc936a43")
+# the gates path (the remaining gate values, utils/profiling.LEAN and
+# KNOBS) on the gated fixture: the fast profile at CLI widths in
+# GATES_BLOCK-byte blocks (one group) and at the gated path's small widths
+# against the CPU (sizes within GATES_SIZE_TOL); the JAX package's PORT=1
+# archive of it under KNOBS at the gated path's small widths
+# (tests/test_torch_gates_fixture.py regenerates it); the portable profile
+# at CLI widths, held to the sha256 of the JAX package's CPU archive of each
+# set (tests/test_torch_gates_cli_width*.py recompute them)
+GATES_BLOCK = 128
+GATES_SIZE_TOL = 0.001
+KNOBS_ARCHIVE = os.path.join(ROOT, "testdata", "knobs.tcmx")
+GATES_PORT_SHA256 = {
+    "lean": ("b1dd53a793ac36ad807b1e8def8182c8"
+             "186d5253a7566815dbc3cd027856c7e6"),
+    "knobs": ("1bace65c275ff7ddf985903897505217"
+              "b6b2d94a1f36dd7b3d2e4918a1dcfa0a")}
+# the resume leg: a text prefix at the main path's small widths in groups
+# of RESUME_BATCH blocks
+RESUME_KIB, RESUME_BATCH = 2, 4
 # the runner CLI's widths (tbits 18, LSTM 256, horizon auto = 4 under 256
 # KiB, 16384 DMC nodes; mbits 20, ibits 16, pbits 20 and 2 LSTM layers are
 # the EngineConfig defaults)
@@ -874,13 +909,152 @@ def gated_path(device):
     return windows + w2
 
 
+def gates_path(device):
+    """The remaining gate values (``utils/profiling.LEAN`` and ``KNOBS``)
+    on the gated fixture: per set the fast profile at CLI widths (exact
+    round trip, identical re-encode, the gates in the record) and at small
+    widths against the CPU, the portable profile at CLI widths held to the
+    JAX package's sha256; for KNOBS the JAX package's PORT=1 archive
+    ``testdata/knobs.tcmx`` decoded and re-encoded on the card -> ({set:
+    launch windows}, {label: (data, cfg, gates, fast archive)})."""
+    from cmix_tpu_torch import runner
+    from cmix_tpu_torch.engine import EngineConfig, make_gates
+    from cmix_tpu_torch.utils import profiling
+    with open(GATED_FIXTURE, "rb") as f:
+        data = f.read()
+    windows, archives = {}, {}
+    small = EngineConfig(**GATED_SMALL)
+    for name in ("lean", "knobs"):
+        env = getattr(profiling, name.upper())
+        g = make_gates(env)
+        label = f"gates path, {name}"
+        print(f"{label}: {len(data)} B of the gated fixture, fast profile, "
+              f"CLI widths, block size cut 65536 -> {GATES_BLOCK} (one "
+              f"group), DMC_LEVELS={g.dmc_levels}, gates {env}")
+        cfg = _cli_cfg(GATES_BLOCK)
+        w, arc = _round_trip(label, data, cfg, device, gates=env)
+        want = make_gates(dict(env, X86X=2, LMS=2, GRID2=1, JPEGX=1)).blob()
+        if _gate_record(arc) != want:
+            raise AssertionError(f"{label}: gate record "
+                                 f"{_gate_record(arc)!r}, not {want!r}")
+        archives[f"{label}, fast profile"] = (data, cfg, env, arc)
+
+        kw = dict(max_batch=GATED_BATCH, gates=env)
+        with Launches() as ws:
+            a_gpu = runner.compress(data, small, device=device, **kw)
+            ok = runner.decompress(a_gpu, device=device) == data
+        w.append(ws)
+        t0 = time.time()
+        a_cpu = runner.compress(data, small, device="cpu", **kw)
+        t_cpu = time.time() - t0
+        gap = (len(a_gpu) - len(a_cpu)) / len(a_cpu)
+        if not ok or abs(gap) > GATES_SIZE_TOL:
+            raise AssertionError(f"{label}, small widths: gpu {len(a_gpu)} B "
+                                 f"vs cpu {len(a_cpu)} B ({gap:+.4%}), round "
+                                 f"trip {ok}")
+        print(f"{label}, small widths ({small.block_size} B blocks): gpu "
+              f"archive {len(a_gpu)} B, cpu {len(a_cpu)} B ({gap:+.4%}; cpu "
+              f"encode {t_cpu:.1f} s), gpu round trip exact")
+
+        if name == "knobs":
+            w += portable_cross_device(
+                device, GATED_FIXTURE, KNOBS_ARCHIVE, GATED_SMALL,
+                GATED_BATCH, "gated content", gates=dict(env, PORT=1),
+                cpu=False)
+        w2, parc = _round_trip(f"{label}, portable profile", data, cfg,
+                               device, reencode=False,
+                               gates=dict(env, PORT=1))
+        digest = hashlib.sha256(parc).hexdigest()
+        if digest != GATES_PORT_SHA256[name]:
+            raise AssertionError(f"{label}: portable archive sha256 {digest} "
+                                 "is not the JAX package's "
+                                 f"{GATES_PORT_SHA256[name]}")
+        print(f"{label}, portable profile: the card's archive is "
+              f"byte-identical to the JAX package's CPU archive (sha256 "
+              f"{digest[:16]}...)")
+        windows[name] = w + w2
+    return windows, archives
+
+
+def resume_leg(device):
+    """--resume on the card: a compress whose journal saver raises after
+    the first coding group, then the resumed run, which codes only the rest
+    and writes the uninterrupted archive; a fast-profile journal the CPU
+    wrote is ignored on the card (every group coded again, the same
+    archive); the journal goes once the archive is whole -> launch
+    windows."""
+    import tempfile
+    from cmix_tpu_torch import runner
+    from cmix_tpu_torch.engine import EngineConfig
+    data = _text(RESUME_KIB)
+    cfg = EngineConfig(block_size=SMALL_BLOCK, seg_size=SMALL_BLOCK,
+                       tbits=12, mbits=12, ibits=10, pbits=12,
+                       lstm_hidden=32, lstm_horizon=4, dmc_nodes=4096)
+    groups = -(-len(data) // (SMALL_BLOCK * RESUME_BATCH))
+    kw = dict(max_batch=RESUME_BATCH)
+    real = runner._resume_save
+
+    class Interrupt(Exception):
+        pass
+
+    def crashing_save(path, key, streams):
+        real(path, key, streams)
+        raise Interrupt
+
+    def interrupted(dev, jp):
+        runner._resume_save = crashing_save
+        try:
+            runner.compress(data, cfg, device=dev, resume_path=jp, **kw)
+        except Interrupt:
+            pass
+        else:
+            raise AssertionError("resume: the saver did not interrupt")
+        finally:
+            runner._resume_save = real
+        if not os.path.exists(jp):
+            raise AssertionError("resume: no journal after the interrupt")
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    windows = []
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        jp = os.path.join(tmp, "job.tcmr")
+        with Launches() as w:
+            full = runner.compress(data, cfg, device=device, **kw)
+        windows.append(w)
+        for label, dev, coded in (
+                ("a card journal", device, groups - 1),
+                ("the CPU's fast-profile journal", "cpu", groups)):
+            interrupted(dev, jp)
+            with Launches() as w:
+                resumed = runner.compress(data, cfg, device=device,
+                                          resume_path=jp, **kw)
+            windows.append(w)
+            want = coded * SMALL_BLOCK
+            if (resumed != full or os.path.exists(jp)
+                    or w.counts["dmc_fused"] != want):
+                raise AssertionError(
+                    f"resume: {label}: archive equal {resumed == full}, "
+                    f"journal left {os.path.exists(jp)}, dmc_fused launches "
+                    f"{w.counts['dmc_fused']} (want {want})")
+            print(f"resume: after {label} interrupted after its first group"
+                  f", the card coded {coded} of {groups} groups "
+                  f"({w.counts['dmc_fused']} dmc_fused launches) and wrote "
+                  f"the uninterrupted archive ({len(full)} B); journal "
+                  "removed")
+    if runner.decompress(full, device=device) != data:
+        raise AssertionError("resume: the archive does not decode")
+    return windows
+
+
 def gated_profiles():
     """ms per graphed byte step at B=256 and CLI widths, device busy, idle
     share and kernels per step, with and without the mechanisms, in both
     profiles (``utils/profiling.py``)."""
     from cmix_tpu_torch.utils import profiling
     rows = {}
-    for gates in ("default", "gated", "portable", "gated-portable"):
+    for gates in ("default", "gated", "portable", "gated-portable", "lean",
+                  "knobs"):
         r = profiling.profile_steps(256, PROFILE_STEPS, gates, True, "cli")
         rows[gates] = r
         print(f"gated: profile, CLI widths, B=256, graph, gates {gates}: wall"
@@ -1248,13 +1422,17 @@ def main():
     windows += routed
     gated = phase("gated path", gated_path, device)
     windows += gated
+    gates, gates_arcs = phase("gates path", gates_path, device)
+    for w in gates.values():
+        windows += w
+    windows += phase("resume", resume_leg, device)
     dicts, replayed = phase("dict path", dict_path, device)
     windows += dicts
     phase("step times", step_times, device)
     phase("gated profiles", gated_profiles)
-    windows += phase("graph", graph_phase, device, {
+    windows += phase("graph", graph_phase, device, dict({
         "main path, fast profile": main_arc,
-        "portable path, PORT=1": port_arc})
+        "portable path, PORT=1": port_arc}, **gates_arcs))
     replaces = {"dmc_fused": "cmix_tpu/models/dmc.py:153",
                 "dmc_counts": "cmix_tpu/models/dmc.py:287"}
     kernels = []
@@ -1267,6 +1445,12 @@ def main():
             "launches": sum(w.counts[name] for w in windows),
             "launches_routed": sum(w.counts[name] for w in routed),
             "launches_gated": sum(w.counts[name] for w in gated),
+            "launches_gates": sum(w.counts[name] for ws in gates.values()
+                                  for w in ws),
+            # the gates path by walk depth: LEAN at 8, KNOBS at 4
+            "launches_gates_l8": sum(w.counts[name] for w in gates["lean"]),
+            "launches_gates_l4": sum(w.counts[name]
+                                     for w in gates["knobs"]),
             "launches_dict": sum(w.counts[name] for w in dicts),
             "launches_pretrain": replayed if name == "dmc_fused" else 0,
             "max_abs_err": max(v["err"] for v in per_level.values()),
@@ -1277,7 +1461,10 @@ def main():
             "library_ms": None})
     summary = ", ".join(f"{k['name']} launches={k['launches']} (routed "
                         f"path {k['launches_routed']}, gated path "
-                        f"{k['launches_gated']}, dictionary path "
+                        f"{k['launches_gated']}, gates path "
+                        f"{k['launches_gates']}: at L=8 "
+                        f"{k['launches_gates_l8']}, at L=4 "
+                        f"{k['launches_gates_l4']}, dictionary path "
                         f"{k['launches_dict']}, of them pretraining "
                         f"{k['launches_pretrain']})" for k in kernels)
     print(f"kernels: {summary} over the coding paths; both exact at L=1..8 "

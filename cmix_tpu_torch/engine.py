@@ -9,18 +9,21 @@ JAX package's ``_GATE_SPEC``/``gates_blob``.
 
 Two profiles, as in the JAX package (README "Determinism contract"):
 
-* the fast profile (PORT=0) mixes in float32 and runs two gate sets: the
-  defaults and the bench speed profile (DMC_LEVELS=7 PPM_CK=0 PPM_DEEP=0
-  BANK_CH=1 CTX4=0);
-* the portable profile (PORT=1 on top of the default gates, any
-  ILSTM_LRX/ILSTM_ADAM) computes everything that feeds the coder in
-  int32: ``utils/intmath.py`` for stretch/squash and for every integer
+* the fast profile (PORT=0) mixes in float32;
+* the portable profile (PORT=1) computes everything that feeds the coder
+  in int32: ``utils/intmath.py`` for stretch/squash and for every integer
   contraction, integer twins of the slot, PPM, mixer and APM updates
   (the ``*_int`` functions below) and the integer LSTM
   (``mixer/ilstm.py``).  Its archives are byte-identical to the JAX
   package's on any device.
 
-On each of these sets the runner switches on the content-routed gates
+Each profile runs every gate set the JAX package codes (``make_gates``):
+the default-on components switched off alone or together (WIKI, MATCH2,
+RUNX, MIX2X, APM2X, STEMX, CTX2-4, BANK_CK, PPM_EXCL/UPD/CK/DEEP,
+MIX_DYN2/3, W_APM_LEARN), the value knobs (MIX_LR, CNT_CAP, MIX_NORM,
+STAT_NORM, CMIX_N_IND, the order and state-bank column lists, RUNX_N,
+BANK_CH, DMC_LEVELS) and any mix of them with the mechanisms below.  On
+each set the runner switches on the content-routed gates
 (``runner.compress``): X86X=2 (4 opcode-stream bank contexts), GRID2=1 (2
 record-grid pixel contexts), JPEGX=1 (8 coefficient-plane contexts),
 outside PORT LMS=2 (the strided linear predictor, one input, media blocks
@@ -30,16 +33,16 @@ shared state carries the dictionary's ``wrtw_word``/``wrtw_stem`` tables).
 ``make_pretrainer`` replays a dictionary through the model at B=1 (the
 runner's pretraining).
 
-On the default gates of either profile it also runs the off-by-default
-mechanisms, alone or together: SSE2 (a serial SSE stage with a learned
-2-weight mixer), APM3X (a bit-history-gated APM), MIX_DYN4 and MIX_KIND
-(six more layer-1 gates), MIX_AUX (the LSTM/PPM/DMC stretches fed raw into
-layer 2), APM_FIXED (the fixed final blend) and JVAL (the JPEG
-coefficient-value model, with JPEGX); in the fast profile only (as the JAX
+The off-by-default mechanisms run in either profile: SSE2 (a serial SSE
+stage with a learned 2-weight mixer), APM3X (a bit-history-gated APM),
+MIX_DYN4 and MIX_KIND (six more layer-1 gates), MIX_AUX (the LSTM/PPM/DMC
+stretches fed raw into layer 2), APM_FIXED (the fixed final blend) and
+JVAL (the JPEG coefficient-value model, with JPEGX); in the fast profile
+only (as the JAX
 package rules) VMATCH (the vertical match), SBANK_ADAPT (count-adaptive
-state-bank rates), MIX_TAU (the decayed mixer rate) and MIX_BOOST.  Every
-other gate value raises NotImplementedError naming the ROADMAP.md item
-that will port it.
+state-bank rates), MIX_TAU (the decayed mixer rate) and MIX_BOOST (whose
+per-row rates act under MIX_NORM=0).  X86X=1 and LMS=1 run through the
+engine; the runner routes X86X and LMS to 0 or 2 from the content.
 
 Determinism on the card (encode and decode must compute the same bits):
 
@@ -66,8 +69,8 @@ import numpy as np
 import torch
 
 from cmix_tpu_torch.contexts.hashes import (
-    WRTW_TAB_N, init_ctx_state, update_ctx_state_batched, bracket_ctx,
-    line_expected)
+    MAX_ORDER, WRTW_TAB_N, init_ctx_state, update_ctx_state_batched,
+    bracket_ctx, line_expected)
 from cmix_tpu_torch.contexts.x86 import (
     init_x86_state, x86_update, x86_ctx_vals, x86_ext_vals, x86_ext_vals2)
 from cmix_tpu_torch.mixer.ilstm import (
@@ -143,29 +146,20 @@ _GATE_SPEC = (
     ("ILSTM_LRX", int, "4"),
     ("ILSTM_ADAM", int, "0"),
 )
-# the bench speed profile (bench.py:65-69): the one other gate set ported
+# the bench speed profile (bench.py:65-69)
 BENCH_GATES = {"DMC_LEVELS": 7, "PPM_CK": 0, "PPM_DEEP": 0, "BANK_CH": 1,
                "CTX4": 0}
-# the values runner.compress routes from the content, accepted on top of
-# every supported gate set (LMS stays a FormatError with PORT); WRTW, which
-# it routes with a dictionary, at any value
-_ROUTED = {"X86X": ("0", "2"), "GRID2": ("0", "1"), "JPEGX": ("0", "1"),
-           "LMS": ("0", "2")}
-# the portable profile's gates: PORT on top of the defaults, and the
-# integer LSTM's learning-rate scale and optimizer at any value
-_PORT_GATES = ("PORT", "ILSTM_LRX", "ILSTM_ADAM")
 # float-internal paths the portable profile excludes (JAX engine _derive)
 _NOT_WITH_PORT = ("VMATCH", "LMS", "MIX_TAU", "MIX_BOOST")
-# the off-by-default mechanisms accepted on the default gates of either
-# profile, alone or together: name -> the values accepted (a float gate:
-# any value above 0; MIX_BOOST_N: any value, with MIX_BOOST on)
-_MECHANISMS = {"SSE2": ("1",), "APM3X": ("1",), "MIX_DYN4": ("1",),
-               "MIX_KIND": ("1",), "MIX_AUX": ("1",), "SBANK_ADAPT": ("1",),
-               "VMATCH": ("1",), "APM_FIXED": ("1",), "JVAL": ("1", "2"),
-               "MIX_TAU": float, "MIX_BOOST": float, "MIX_BOOST_N": float}
-_OFF_BY_DEFAULT = ("item 15b (the default-on components switched off, the "
-                   "value knobs, the bench set mixed with other gates, PORT=1"
-                   " on the bench gates, X86X=1, LMS=1)")
+# gates the JAX package counts into a width (N_BANK, N_INPUTS, N_APM) at
+# their value but whose code adds one block when they are on: only these
+# values give the widths the code builds, others fail its trace (X86X's
+# values are _derive's own check; CMIX_N_IND's 0 and past 8 fail there too)
+_COUNTED = {"WIKI": (0, 1), "GRID2": (0, 1), "JPEGX": (0, 1), "STEMX": (0, 1),
+            "CTX2": (0, 1), "CTX3": (0, 1), "CTX4": (0, 1), "MATCH2": (0, 1),
+            "VMATCH": (0, 1), "APM2X": (0, 1), "APM3X": (0, 1),
+            "X86X": (0, 1, 2), "JVAL": (0, 1, 2), "BANK_CH": (1, 2, 3),
+            "CMIX_N_IND": tuple(range(1, 9))}
 
 
 def _norm_gate(name, typ, raw):
@@ -181,12 +175,25 @@ def _norm_gate(name, typ, raw):
 
 GATE_NAMES = tuple(n for n, _, _ in _GATE_SPEC)
 _DEFAULTS = {n: _norm_gate(n, t, d) for n, t, d in _GATE_SPEC}
-_BENCH = dict(_DEFAULTS, **{k: str(v) for k, v in BENCH_GATES.items()})
+
+
+def _int_gate(name):
+    """A property: the gate ``name`` as an int."""
+    return cached_property(lambda self: int(self[name]))
+
+
+def _list_gate(name):
+    """A property: the comma-separated gate ``name`` as a tuple of ints."""
+    return cached_property(
+        lambda self: tuple(int(o) for o in self[name].split(",")))
 
 
 @dataclass(frozen=True)
 class Gates:
-    """One validated gate set (normalized name -> value strings)."""
+    """One validated gate set (normalized name -> value strings).  Every
+    gate of ``_GATE_SPEC`` is a property (an int, a float, a bool for PORT
+    and ILSTM_ADAM, a tuple of ints for the order and column lists); the
+    derived sizes follow cmix_tpu/engine.py _derive."""
     env: tuple
 
     def __getitem__(self, name):
@@ -197,122 +204,89 @@ class Gates:
         return ";".join(f"{n}={v}" for n, v in self.env
                         if v != _DEFAULTS[n]).encode("ascii")
 
-    def _i(self, name):
-        return int(self[name])
+    n_ind = _int_gate("CMIX_N_IND")
+    wiki = _int_gate("WIKI")
+    x86x = _int_gate("X86X")
+    match_orders = _list_gate("CMIX_MATCH_ORDERS")
+    match2 = _int_gate("MATCH2")
+    ppm_excl = _int_gate("PPM_EXCL")
+    ppm_upd = _int_gate("PPM_UPD")
+    ppm_ck = _int_gate("PPM_CK")
+    ppm_deep = _int_gate("PPM_DEEP")
+    bank_ck = _int_gate("BANK_CK")
+    mix_dyn3 = _int_gate("MIX_DYN3")
+    mix_dyn4 = _int_gate("MIX_DYN4")
+    sbank_cols = _list_gate("CMIX_SBANK_COLS")
+    sbank_adapt = _int_gate("SBANK_ADAPT")
+    vmatch = _int_gate("VMATCH")
+    lms = _int_gate("LMS")
+    grid2 = _int_gate("GRID2")
+    jval = _int_gate("JVAL")
+    jpegx = _int_gate("JPEGX")
+    stemx = _int_gate("STEMX")
+    wrtw = _int_gate("WRTW")
+    ctx2 = _int_gate("CTX2")
+    ctx3 = _int_gate("CTX3")
+    ctx4 = _int_gate("CTX4")
+    bank_ch = _int_gate("BANK_CH")
+    runx = _int_gate("RUNX")
+    mix_dyn2 = _int_gate("MIX_DYN2")
+    mix2x = _int_gate("MIX2X")
+    mix_kind = _int_gate("MIX_KIND")
+    mix_aux = _int_gate("MIX_AUX")
+    w_apm_learn = _int_gate("W_APM_LEARN")
+    mix_norm = _int_gate("MIX_NORM")
+    stat_norm = _int_gate("STAT_NORM")
+    apm2x = _int_gate("APM2X")
+    apm_fixed = _int_gate("APM_FIXED")
+    apm3x = _int_gate("APM3X")
+    sse2 = _int_gate("SSE2")
+    cnt_cap = _int_gate("CNT_CAP")
+    ilstm_lrx = _int_gate("ILSTM_LRX")
 
-    # ---- the gates this port lets vary
     @cached_property
     def port(self):
-        return self._i("PORT") != 0
-
-    @cached_property
-    def ilstm_lrx(self):
-        return self._i("ILSTM_LRX")
+        return int(self["PORT"]) != 0
 
     @cached_property
     def ilstm_adam(self):
-        return self._i("ILSTM_ADAM") != 0
+        return int(self["ILSTM_ADAM"]) != 0
 
     @cached_property
     def dmc_levels(self):
-        return min(self._i("DMC_LEVELS"), 8)
+        return min(int(self["DMC_LEVELS"]), 8)
 
     @cached_property
-    def ppm_ck(self):
-        return self._i("PPM_CK")
-
-    @cached_property
-    def ppm_deep(self):
-        return self._i("PPM_DEEP")
-
-    @cached_property
-    def bank_ch(self):
-        return self._i("BANK_CH")
-
-    @cached_property
-    def ctx4(self):
-        return self._i("CTX4")
-
-    # ---- the content-routed gates
-    @cached_property
-    def x86x(self):
-        return self._i("X86X")
-
-    @cached_property
-    def grid2(self):
-        return self._i("GRID2")
-
-    @cached_property
-    def jpegx(self):
-        return self._i("JPEGX")
-
-    @cached_property
-    def lms(self):
-        return self._i("LMS")
-
-    @cached_property
-    def wrtw(self):
-        return self._i("WRTW")
-
-    # ---- the off-by-default mechanisms
-    @cached_property
-    def sse2(self):
-        return self._i("SSE2")
-
-    @cached_property
-    def apm3x(self):
-        return self._i("APM3X")
-
-    @cached_property
-    def mix_dyn4(self):
-        return self._i("MIX_DYN4")
-
-    @cached_property
-    def mix_kind(self):
-        return self._i("MIX_KIND")
-
-    @cached_property
-    def mix_aux(self):
-        return self._i("MIX_AUX")
-
-    @cached_property
-    def sbank_adapt(self):
-        return self._i("SBANK_ADAPT")
-
-    @cached_property
-    def vmatch(self):
-        return self._i("VMATCH")
-
-    @cached_property
-    def apm_fixed(self):
-        return self._i("APM_FIXED")
-
-    @cached_property
-    def jval(self):
-        return self._i("JVAL")
+    def mix_lr(self):
+        return float(self["MIX_LR"])
 
     @cached_property
     def mix_tau(self):
         return float(self["MIX_TAU"])
 
-    # ---- derived sizes (cf. cmix_tpu/engine.py _derive)
     @cached_property
-    def n_ind(self):
-        return self._i("CMIX_N_IND")
+    def mix_boost(self):
+        return float(self["MIX_BOOST"])
 
+    @cached_property
+    def mix_boost_n(self):
+        return float(self["MIX_BOOST_N"])
+
+    # ---- derived sizes (cmix_tpu/engine.py _derive)
     @cached_property
     def n_bank(self):
-        return (47 + self.n_ind + 4 * self._i("WIKI") + 2 * self.x86x
-                + 2 * self.grid2 + 8 * self.jpegx + 2 * self._i("STEMX")
-                + 8 * self._i("CTX2") + 8 * self._i("CTX3") + 8 * self.ctx4)
-
-    @cached_property
-    def match_orders(self):
-        return tuple(int(o) for o in self["CMIX_MATCH_ORDERS"].split(","))
+        return (47 + self.n_ind + 4 * self.wiki + 2 * self.x86x
+                + 2 * self.grid2 + 8 * self.jpegx + 2 * self.stemx
+                + 8 * self.ctx2 + 8 * self.ctx3 + 8 * self.ctx4)
 
     @cached_property
     def n_match(self):
         return len(self.match_orders)
+
+    @cached_property
+    def mstride(self):
+        # MATCH2 keeps the two latest positions per match-table key
+        return 1 + self.match2
 
     @cached_property
     def ppm_orders(self):
@@ -324,16 +298,18 @@ class Gates:
         return len(self.ppm_orders)
 
     @cached_property
-    def sbank_cols(self):
-        return tuple(int(c) for c in self["CMIX_SBANK_COLS"].split(","))
-
-    @cached_property
     def n_sbank(self):
         return len(self.sbank_cols)
 
     @cached_property
+    def sbank_gate(self):
+        # the state-bank model whose root state gates MIX2X, APM3X and SSE2:
+        # the order-2 one (column 1), else the first
+        return self.sbank_cols.index(1) if 1 in self.sbank_cols else 0
+
+    @cached_property
     def runx_n(self):
-        return min(self._i("RUNX_N"), self.n_bank, 64)
+        return min(int(self["RUNX_N"]), self.n_bank, 64)
 
     @cached_property
     def dmc_idx(self):
@@ -344,8 +320,9 @@ class Gates:
         # bank + d0/d12 + match + lstm + ppm + sbank + dmc + lms + vmatch
         # + match2 + runx + jval (one channel per JVAL tier)
         return (self.n_bank + 4 + self.n_match + 1 + 1 + self.n_sbank + 1
-                + (1 if self.lms else 0) + self.vmatch + self.n_match
-                + self.runx_n + self.jval)
+                + (1 if self.lms else 0) + self.vmatch
+                + self.match2 * self.n_match
+                + (self.runx_n if self.runx else 0) + self.jval)
 
     @cached_property
     def n_inputs(self):
@@ -354,9 +331,11 @@ class Gates:
     @cached_property
     def mix1_rows(self):
         return np.array([1, 8, 256, 1024, 64, 256, 256, 64, 512, 128, 64]
-                        + [257, 256, 64, 256] + [2048, 257, 32, 256, 256]
-                        + [32, 256, 64, 256, 272] * self.mix_dyn4
-                        + [64] * self.mix_kind, dtype=np.int64)
+                        + ([257, 256, 64, 256] if self.mix_dyn2 else [])
+                        + ([2048, 257, 32, 256, 256] if self.mix_dyn3
+                           else [])
+                        + ([32, 256, 64, 256, 272] if self.mix_dyn4 else [])
+                        + ([64] if self.mix_kind else []), dtype=np.int64)
 
     @cached_property
     def n_mix1(self):
@@ -373,7 +352,7 @@ class Gates:
     @cached_property
     def m2in(self):
         # layer-2 inputs: the layer-1 outputs, then MIX_AUX's raw taps
-        return self.n_mix1 + 3 * self.mix_aux
+        return self.n_mix1 + (3 if self.mix_aux else 0)
 
     @cached_property
     def aux_taps(self):
@@ -384,11 +363,13 @@ class Gates:
 
     @cached_property
     def mix2_rows(self):
-        return np.array([64, 64, 256, 256, 256], dtype=np.int64)
+        return np.array([64, 64, 256, 256, 256] if self.mix2x else [],
+                        dtype=np.int64)
 
     @cached_property
     def mix2_off(self):
-        return np.concatenate([[0], np.cumsum(self.mix2_rows)[:-1]])
+        return np.concatenate([[0], np.cumsum(self.mix2_rows)[:-1]]
+                              ).astype(np.int64)[:len(self.mix2_rows)]
 
     @cached_property
     def mix2_total(self):
@@ -415,76 +396,77 @@ class Gates:
 
     @cached_property
     def n_apm(self):
-        # the parallel APMs: byte, match, order-2, word, line (APM2X) and
+        # the parallel APMs: byte, match, order-2, APM2X's word and line,
         # APM3X's bit-history stage
-        return 5 + self.apm3x
-
-    @cached_property
-    def apm_rows(self):
-        # [0,576) the first three | [576,1088) APM2X's two | 256 rows of
-        # APM3X | 256 rows of the SSE2 stage
-        return 576 + 512 + 256 * self.apm3x + 256 * self.sse2
+        return 3 + 2 * self.apm2x + self.apm3x
 
     @cached_property
     def sse2_base(self):
-        return 576 + 512 + 256 * self.apm3x
+        # [0,576) the first three | 512 rows of APM2X's two | 256 rows of
+        # APM3X | then the SSE2 stage's rows
+        return 576 + 512 * self.apm2x + 256 * self.apm3x
+
+    @cached_property
+    def apm_rows(self):
+        return self.sse2_base + 256 * self.sse2
 
 
 def make_gates(env=None) -> Gates:
     """Validate a gate mapping (name -> raw value; missing = default).
 
-    Raises FormatError where the JAX package does (an unknown gate, an X86X
+    Accepts every gate set the JAX package codes.  Raises FormatError where
+    the JAX package's ``_derive`` does (an unknown gate or value, an X86X
     it does not know, PORT with a float-internal path) and where it accepts
-    a gate set that it cannot code (PORT with SBANK_ADAPT, JVAL without
-    JPEGX: ROADMAP.md's reference faults), and NotImplementedError for a
-    gate set this port does not run yet."""
+    a set that its byte step cannot trace, so that no archive carries it
+    (ROADMAP.md's reference faults): PORT with SBANK_ADAPT, JVAL without
+    JPEGX, a width-counted gate outside the values its code builds
+    (``_COUNTED``), a PPM order past the order hashes without PPM_DEEP or
+    a negative one, RUNX with a negative RUNX_N.  It also refuses APM2X=-1
+    and a negative SSE2, which the JAX package traces with APM rows past
+    its APM table (its reads clamp onto other rows, its writes drop)."""
     env = dict(env or {})
-    known = {n for n, _, _ in _GATE_SPEC}
     for name in env:
-        if name not in known:
+        if name not in _DEFAULTS:
             raise FormatError(f"unknown model gate {name!r}")
-    vals = {n: _norm_gate(n, t, env.get(n, d)) for n, t, d in _GATE_SPEC}
-    if vals["X86X"] not in ("0", "1", "2"):
-        raise FormatError(f"X86X={vals['X86X']} unsupported (expected 0, 1, "
-                          "2)")
-    port = vals["PORT"] != "0"
-    if port and any(vals[n] != _DEFAULTS[n] for n in _NOT_WITH_PORT):
+    try:
+        vals = {n: _norm_gate(n, t, env.get(n, d)) for n, t, d in _GATE_SPEC}
+        g = Gates(tuple((n, vals[n]) for n, _, _ in _GATE_SPEC))
+        _ = (g.match_orders, g.ppm_orders, g.sbank_cols)   # the lists parse
+    except ValueError as e:
+        raise FormatError(f"malformed gate value: {e}") from None
+    if g.x86x not in (0, 1, 2):
+        raise FormatError(f"X86X={g.x86x} unsupported (expected 0, 1, 2)")
+    if g.port and any(vals[n] != _DEFAULTS[n] for n in _NOT_WITH_PORT):
         raise FormatError("PORT=1 requires VMATCH=0, LMS=0, MIX_TAU=0 "
                           "and MIX_BOOST=0 (float-internal paths)")
-    if port and vals["SBANK_ADAPT"] != "0":
+    if g.port and g.sbank_adapt:
         raise FormatError("PORT=1 with SBANK_ADAPT cannot be coded: the JAX "
                           "package keeps its visit counts in float32 and its "
                           "integer rate shift fails, so no archive has it")
-    if vals["JVAL"] != "0" and vals["JPEGX"] == "0":
+    if g.jval and not g.jpegx:
         raise FormatError("JVAL requires JPEGX: its contexts are the JPEG "
                           "coefficient coordinates (the runner routes it "
                           "with JPEGX)")
-
-    def accepted(n, v):
-        ok = _MECHANISMS[n]
-        if n == "MIX_BOOST_N":
-            return float(vals["MIX_BOOST"]) > 0
-        return float(v) > 0 if ok is float else v in ok
-
-    mech = [n for n in _MECHANISMS
-            if vals[n] != _DEFAULTS[n] and accepted(n, vals[n])]
-    # the gate set under the routed gates and the mechanisms: the defaults
-    # or the bench set
-    base = {n: _DEFAULTS[n] if v in _ROUTED.get(n, ()) or n == "WRTW"
-            or n in mech else v for n, v in vals.items()}
-    off = [n for n, _, _ in _GATE_SPEC
-           if base[n] != _DEFAULTS[n] and n not in _PORT_GATES]
-    if off and (base != _BENCH or mech):
-        n = off[0] if base != _BENCH else mech[0]
-        where = _OFF_BY_DEFAULT
-        if n in BENCH_GATES or base == _BENCH:
-            where = ("the bench profile's gates only as the whole set "
-                     f"{BENCH_GATES}, without PORT or other gates; other "
-                     "mixes: " + where)
-        raise NotImplementedError(
-            f"gate {n}={vals[n]} is not ported to cmix_tpu_torch yet "
-            f"(ROADMAP.md queue 1, {where})")
-    return Gates(tuple((n, vals[n]) for n, _, _ in _GATE_SPEC))
+    for name, ok in _COUNTED.items():
+        if int(vals[name]) not in ok:
+            raise FormatError(
+                f"{name}={vals[name]} cannot be coded: the JAX package "
+                f"counts it into a model width, and its code builds that "
+                f"width only at {ok}")
+    bad = [o for o in g.ppm_orders
+           if o < 0 or (o > MAX_ORDER and not g.ppm_deep)]
+    if bad:
+        raise FormatError(f"CMIX_PPM_ORDERS {bad}: orders past "
+                          f"{MAX_ORDER} read the deep window hashes, which "
+                          "exist only under PPM_DEEP, and a negative order "
+                          "has no salt")
+    if g.runx and int(vals["RUNX_N"]) < 0:
+        raise FormatError(f"RUNX_N={vals['RUNX_N']}: RUNX needs a "
+                          "non-negative count")
+    if g.sse2 < 0:
+        raise FormatError(f"SSE2={g.sse2}: the SSE2 rows would lie past the "
+                          "APM table")
+    return g
 
 
 def gates_from_blob(blob: bytes) -> Gates:
@@ -525,8 +507,6 @@ JVAL_ROWS = 4 * 10 * 8 * 8                # comp x band x magN x magW
 JVAL2_ROWS = 4 * 64                       # comp x zigzag position
 POS_BITS = 24
 PPM_INC = 3
-CNT_CAP = 60
-MIX_LR = 4e-3
 LMS_K = 4
 LMS_MU = 0.002
 PRETRAIN_SEG = 4096        # pretraining's segment (min'd with the block):
@@ -684,7 +664,9 @@ def init_shared(cfg: EngineConfig, g: Gates, device, wrtw_tables=None):
         "d0_p": torch.full((256,), 0.5, **f32),
         "d0_c": torch.zeros(256, **f32),
         "d12": torch.full((D12_ROWS, 256), SLOT_INIT, **i32),
-        "aux_tbl": torch.zeros(2 * g.n_match * (1 << cfg.mbits)
+        # the match tables (MATCH2: two positions per key) and the
+        # indirect table in one arena
+        "aux_tbl": torch.zeros(g.mstride * g.n_match * (1 << cfg.mbits)
                                + g.n_ind * (1 << cfg.ibits), **i32),
         "match_conf": torch.full((g.n_match, 32), 0.55, **f32),
         "vmatch_conf": torch.full((32,), 0.55, **f32),
@@ -701,7 +683,6 @@ def init_shared(cfg: EngineConfig, g: Gates, device, wrtw_tables=None):
         "w2": t(np.tile(w2_row[None], (8, 1))),
         "w2b": t(np.tile(w2_row[None], (256, 1))),
         "w2c": t(np.tile(w2_row[None], (64, 1))),
-        "w2x": t(np.tile(w2_row[None], (g.mix2_total, 1))),
         "bias2": torch.zeros((g.n_l2, 256), **f32),
         "w3": torch.full((8, g.n_l2), 1.0 / g.n_l2, **f32),
         "bias3": torch.zeros(256, **f32),
@@ -710,13 +691,17 @@ def init_shared(cfg: EngineConfig, g: Gates, device, wrtw_tables=None):
             [[0.4], np.full(g.n_apm, 0.6 / g.n_apm)]).astype(np.float32)
             [None], (64, 1))),
         "vocab_force": torch.zeros(256, dtype=torch.int64, device=device),
-        "match2_conf": torch.full((g.n_match, 32), 0.55, **f32),
-        "runx_conf": torch.full((g.runx_n, 32), 0.55, **f32),
         "bank": t(np.broadcast_to(row0[None, None],
                                   (g.n_bank, cfg.rows, 256))),
     }
     if g.ppm_ck:
         sh["ppm_ck"] = torch.full((g.n_ppm, cfg.prows), 256, **i32)
+    if g.mix2x:
+        sh["w2x"] = t(np.tile(w2_row[None], (g.mix2_total, 1)))
+    if g.match2:
+        sh["match2_conf"] = torch.full((g.n_match, 32), 0.55, **f32)
+    if g.runx:
+        sh["runx_conf"] = torch.full((g.runx_n, 32), 0.55, **f32)
     # JVAL's byte counts per (component, band, magN, magW) and, at JVAL=2,
     # per (component, zigzag position)
     if g.jval:
@@ -766,8 +751,10 @@ def _port_tables(g: Gates, device):
         "d0_p": torch.full((256,), 2048, **i32),
         "d0_c": torch.zeros(256, **i32),
         "match_conf": torch.full((g.n_match, 32), 2253, **i32),
-        "match2_conf": torch.full((g.n_match, 32), 2253, **i32),
-        "runx_conf": torch.full((g.runx_n, 32), 2253, **i32),
+        **({"match2_conf": torch.full((g.n_match, 32), 2253, **i32)}
+           if g.match2 else {}),
+        **({"runx_conf": torch.full((g.runx_n, 32), 2253, **i32)}
+           if g.runx else {}),
         "ppm_see": torch.as_tensor(q(_see_init(g), 4096, 4, 3891),
                                    device=device),
         "sbank_p": torch.as_tensor(q(g.sbank_p0, 4096, 1, 4095),
@@ -777,7 +764,7 @@ def _port_tables(g: Gates, device):
         "w2": tile(w2, 8),
         "w2b": tile(w2, 256),
         "w2c": tile(w2, 64),
-        "w2x": tile(w2, g.mix2_total),
+        **({"w2x": tile(w2, g.mix2_total)} if g.mix2x else {}),
         "bias2": torch.zeros((g.n_l2, 256), **i32),
         "w3": torch.full((8, g.n_l2), 65536 // g.n_l2, **i32),
         "bias3": torch.zeros(256, **i32),
@@ -800,9 +787,6 @@ def init_perblock(cfg: EngineConfig, g: Gates, B, device):
         "mp_blk": torch.zeros((B, nm), **i64),
         "mp_pos": torch.zeros((B, nm), **i64),
         "match_len": torch.zeros((B, nm), **i64),
-        "mp2_blk": torch.zeros((B, nm), **i64),
-        "mp2_pos": torch.zeros((B, nm), **i64),
-        "match2_len": torch.zeros((B, nm), **i64),
         "rec_lastpos": torch.full((B, 256), -1, **i64),
         "rec_stride": torch.zeros((B, 256), **i64),
         "rec_len": torch.ones(B, **i64),
@@ -816,6 +800,9 @@ def init_perblock(cfg: EngineConfig, g: Gates, B, device):
         "lms_err": torch.zeros(B, dtype=torch.float32, device=device),
         "x86": init_x86_state(B, device),
     }
+    if g.match2:
+        for k in ("mp2_blk", "mp2_pos", "match2_len"):
+            pb[k] = torch.zeros((B, nm), **i64)
     if g.ppm_deep:
         pb["h32"] = torch.zeros(B, **i64)
         pb["h48"] = torch.zeros(B, **i64)
@@ -854,7 +841,11 @@ class _Consts:
         self.ssalt = t([((s + 7) * 0x27D4EB2F) & M32
                         for s in range(g.n_sbank)])
         self.psalt = t([(o * 0xB5297A4D) & M32 for o in g.ppm_orders])
-        self.scols = t(g.sbank_cols)
+        # a column past the bank reads as the JAX package's gather reads
+        # it: negative columns count from the end, then clamp
+        nb = g.n_bank
+        self.scols = t([min(max(c + nb if c < 0 else c, 0), nb - 1)
+                        for c in g.sbank_cols])
         nx = g.sbank_next.astype(np.int64)
         self.snext01 = t(nx[:, :, 0] | (nx[:, :, 1] << 8))    # (NS, 256)
         n_pri = g.n_primary
@@ -1095,8 +1086,6 @@ def _bank_bases_b(g, C, cs, ind_val, rec_vals, x86_st, x86_vals, dist_b1):
     above_l, v_alive = line_expected(cs)
     w2 = mix32(lw2, lw)                               # word bigram
     q12 = _qdelta(b1, b2)
-    cell = cs["cellidx"]
-    pcell = torch.gather(cs["pcellbuf"], 1, cell[:, None])[:, 0]
     vals, pairs = [], []
 
     def raw(v):
@@ -1144,12 +1133,14 @@ def _bank_bases_b(g, C, cs, ind_val, rec_vals, x86_st, x86_vals, dist_b1):
     mix(above_l | (b1 << 16), 0x165667B1)
     for j in range(1, g.n_ind):
         raw(ind_val[:, j])                                       # 48+
-    # WIKI
-    mix(pcell | (cell << 16), 0x94D049BB)
-    mix(cell | (cs["cellpos"] << 5) | (b1 << 16), 0xBF58476D)
-    mix(cs["listdepth"] | (cs["listchar"] << 4)
-        | (torch.clamp(linepos, max=63) << 12), 0xD6E8FEB8)
-    mix(w, cell + 0x2F)
+    if g.wiki:
+        cell = cs["cellidx"]
+        pcell = torch.gather(cs["pcellbuf"], 1, cell[:, None])[:, 0]
+        mix(pcell | (cell << 16), 0x94D049BB)
+        mix(cell | (cs["cellpos"] << 5) | (b1 << 16), 0xBF58476D)
+        mix(cs["listdepth"] | (cs["listchar"] << 4)
+            | (torch.clamp(linepos, max=63) << 12), 0xD6E8FEB8)
+        mix(w, cell + 0x2F)
     # X86X: opcode-stream contexts; GRID2 and JPEGX: record-grid columns
     # 4.. of _record_ctx_vals
     if g.x86x:
@@ -1160,27 +1151,27 @@ def _bank_bases_b(g, C, cs, ind_val, rec_vals, x86_st, x86_vals, dist_b1):
             raw(xe[:, j])
     for j in range(4, rec_vals.shape[1]):
         raw(rec_vals[:, j])
-    # STEMX
-    mix(stem, 0x85EBCA77)
-    mix(stem, (w + 0x1D) & M32)
-    # CTX2
-    mix(w2, (w + 0x6A09) & M32)
-    mix(w, b1 + 0xBB67)
-    mix(w, torch.clamp(sentpos >> 3, max=31) + 0x3C6E)
-    mix(cs["wtail"], wlen15 + 0xA54F)
-    mix(tag, b1 + 0x510E)
-    mix(b1 | (b3 << 8) | (b4 << 16), 0x9B05688C)
-    mix(stem, b1 + 0x1F83)
-    mix(clsreg & 0xFFF, torch.clamp(linepos, max=63) + 0x5BE0)
-    # CTX3
-    mix(b2 | (b4 << 8), 0x71374491)
-    mix((l8 & 0xFF) | (((l8 >> 16) & 0xFF) << 8), 0xB5C0FBCF)
-    mix((l4 | 0x20202020) & 0xFFFFFF, 0xE9B5DBA5)
-    mix(l4 & 0xF0F0F0F0, 0x3956C25B)
-    mix(w, cs["cls2reg"] + 0x59F1)
-    mix(lw, torch.clamp(sentpos, max=255) + 0x923F)
-    raw(oh[:, 14])
-    mix(cs["word_pfx"], b1 + 0xAB1C)
+    if g.stemx:
+        mix(stem, 0x85EBCA77)
+        mix(stem, (w + 0x1D) & M32)
+    if g.ctx2:
+        mix(w2, (w + 0x6A09) & M32)
+        mix(w, b1 + 0xBB67)
+        mix(w, torch.clamp(sentpos >> 3, max=31) + 0x3C6E)
+        mix(cs["wtail"], wlen15 + 0xA54F)
+        mix(tag, b1 + 0x510E)
+        mix(b1 | (b3 << 8) | (b4 << 16), 0x9B05688C)
+        mix(stem, b1 + 0x1F83)
+        mix(clsreg & 0xFFF, torch.clamp(linepos, max=63) + 0x5BE0)
+    if g.ctx3:
+        mix(b2 | (b4 << 8), 0x71374491)
+        mix((l8 & 0xFF) | (((l8 >> 16) & 0xFF) << 8), 0xB5C0FBCF)
+        mix((l4 | 0x20202020) & 0xFFFFFF, 0xE9B5DBA5)
+        mix(l4 & 0xF0F0F0F0, 0x3956C25B)
+        mix(w, cs["cls2reg"] + 0x59F1)
+        mix(lw, torch.clamp(sentpos, max=255) + 0x923F)
+        raw(oh[:, 14])
+        mix(cs["word_pfx"], b1 + 0xAB1C)
     if g.ctx4:
         d = torch.clamp(dist_b1, min=1)
         dkey = torch.where(d < 32, d, 32 + _floor_log2_i(d))
@@ -1338,19 +1329,24 @@ def _coder_bit_b(cd, comp, enc_bit, p16, mode):
 # ----------------------------------------------------------- tree predictor
 
 
-def _ppm_blend_f32(sh, ppm_rows, C, p_idx):
-    """f32 PPM escape blend with symbol exclusion (PPM_EXCL=1).
+def _ppm_blend_f32(sh, ppm_rows, C, p_idx, excl):
+    """f32 PPM escape blend; ``excl`` (PPM_EXCL): symbol exclusion, a
+    symbol counted at a higher order drops out of the lower orders and the
+    fallback is uniform over the never-seen symbols.
     Returns (st_ppm, pcnt_eff, ptot, pdst, see_d, see_t, see_p)."""
-    B = ppm_rows.shape[0]
-    rev = torch.flip(ppm_rows, [1])                          # high order 1st
-    seen_i = torch.cumsum((rev > 0).long(), dim=1)           # exact counts
-    seen_above = torch.cat([torch.zeros_like(seen_i[:, :1]),
-                            seen_i[:, :-1]], dim=1)
-    pcnt = torch.flip(torch.where(seen_above > 0, 0, rev), [1]).float()
-    unseen = (seen_i[:, -1, :] == 0).float()
-    n_uns = unseen.sum(dim=1, keepdim=True)
-    fb = torch.where(n_uns > 0, unseen / torch.clamp(n_uns, min=1.0),
-                     1.0 / 256.0)
+    if excl:
+        rev = torch.flip(ppm_rows, [1])                      # high order 1st
+        seen_i = torch.cumsum((rev > 0).long(), dim=1)       # exact counts
+        seen_above = torch.cat([torch.zeros_like(seen_i[:, :1]),
+                                seen_i[:, :-1]], dim=1)
+        pcnt = torch.flip(torch.where(seen_above > 0, 0, rev), [1]).float()
+        unseen = (seen_i[:, -1, :] == 0).float()
+        n_uns = unseen.sum(dim=1, keepdim=True)
+        fb = torch.where(n_uns > 0, unseen / torch.clamp(n_uns, min=1.0),
+                         1.0 / 256.0)
+    else:
+        pcnt = ppm_rows.float()
+        fb = 1.0 / 256.0
     ptot = pcnt.sum(dim=2)
     pdst = (pcnt > 0).float().sum(dim=2)
     see_d = torch.clamp(pdst, max=SEE_DIST_B - 1).long()
@@ -1372,21 +1368,26 @@ def _ppm_blend_f32(sh, ppm_rows, C, p_idx):
             see_p)
 
 
-def _ppm_blend_int(sh, ppm_rows, C, p_idx):
+def _ppm_blend_int(sh, ppm_rows, C, p_idx, excl):
     """Integer twin of _ppm_blend_f32 (portable profile): the distribution
     in 16-bit fixed point, escapes in p12, node probabilities by exact
     integer division, st256 through intmath.  All int32."""
     i32 = torch.int32
     B, n_ppm = ppm_rows.shape[:2]
-    rev = torch.flip(ppm_rows, [1])                          # high order 1st
-    seen = torch.cumsum((rev > 0).to(i32), dim=1).to(i32)
-    seen_above = torch.cat([torch.zeros_like(seen[:, :1]), seen[:, :-1]],
-                           dim=1)
-    pcnt = torch.flip(torch.where(seen_above > 0, 0, rev), [1])
-    unseen = (seen[:, -1, :] == 0).to(i32)                   # (B, 256)
-    n_uns = unseen.sum(dim=1, keepdim=True).to(i32)
-    fb16 = torch.where(n_uns > 0,
-                       unseen * (65536 // torch.clamp(n_uns, min=1)), 256)
+    if excl:
+        rev = torch.flip(ppm_rows, [1])                      # high order 1st
+        seen = torch.cumsum((rev > 0).to(i32), dim=1).to(i32)
+        seen_above = torch.cat([torch.zeros_like(seen[:, :1]),
+                                seen[:, :-1]], dim=1)
+        pcnt = torch.flip(torch.where(seen_above > 0, 0, rev), [1])
+        unseen = (seen[:, -1, :] == 0).to(i32)               # (B, 256)
+        n_uns = unseen.sum(dim=1, keepdim=True).to(i32)
+        fb16 = torch.where(n_uns > 0,
+                           unseen * (65536 // torch.clamp(n_uns, min=1)),
+                           256)
+    else:
+        pcnt = ppm_rows.to(i32)
+        fb16 = torch.full((B, 256), 256, dtype=i32, device=ppm_rows.device)
     ptot = pcnt.sum(dim=2).to(i32)                           # (B, NP)
     pdst = (pcnt > 0).sum(dim=2).to(i32)
     see_d = torch.clamp(pdst, max=SEE_DIST_B - 1).long()
@@ -1427,21 +1428,30 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
         g, C, cs, pb["ind_val"], rec_vals, pb["x86"], x86_vals, dist_b1)
     B = bases.shape[0]
 
-    # ---- bank: 2-way set-associative rows probed by checksum (BANK_CK=2)
+    # ---- bank rows: BANK_CK=2 probes 2-way set-associative rows by
+    # checksum, replacing the less mature way on a double miss; another
+    # BANK_CK reads a row whose checksum mismatches as fresh; 0 reads it
     rowi = (bases >> 8) & (cfg.rows - 1)
-    ck_exp = bases & 0xFF
-    alt = rowi ^ 1
-    rows_a = _bank_gather(sh, rowi)                          # (B, NB, 256)
-    rows_b = _bank_gather(sh, alt)
-    ok_a = (rows_a[:, :, 0] >> 16).long() == ck_exp
-    ok_b = (rows_b[:, :, 0] >> 16).long() == ck_exp
-    mat_a = rows_a[:, :, 1] & 0x3F
-    mat_b = rows_b[:, :, 1] & 0x3F
-    pick_b = (~ok_a) & (ok_b | (mat_b <= mat_a))
-    rowi = torch.where(pick_b, alt, rowi)
-    rows = torch.where(pick_b[:, :, None], rows_b, rows_a)
-    hdr = rows[:, :, 0].long()
-    rows = torch.where((ok_a | ok_b)[:, :, None], rows, SLOT_INIT)
+    ck_exp = bases & 0xFF if g.bank_ck else None
+    if g.bank_ck == 2:
+        alt = rowi ^ 1
+        rows_a = _bank_gather(sh, rowi)                      # (B, NB, 256)
+        rows_b = _bank_gather(sh, alt)
+        ok_a = (rows_a[:, :, 0] >> 16).long() == ck_exp
+        ok_b = (rows_b[:, :, 0] >> 16).long() == ck_exp
+        mat_a = rows_a[:, :, 1] & 0x3F
+        mat_b = rows_b[:, :, 1] & 0x3F
+        pick_b = (~ok_a) & (ok_b | (mat_b <= mat_a))
+        rowi = torch.where(pick_b, alt, rowi)
+        rows = torch.where(pick_b[:, :, None], rows_b, rows_a)
+        hdr = rows[:, :, 0].long()
+        rows = torch.where((ok_a | ok_b)[:, :, None], rows, SLOT_INIT)
+    else:
+        rows = _bank_gather(sh, rowi)
+        hdr = rows[:, :, 0].long()
+        if g.bank_ck:
+            rows = torch.where(((hdr >> 16) == ck_exp)[:, :, None], rows,
+                               SLOT_INIT)
     port = g.port
     # the model inputs: f32 stretches, or st256 int32 under PORT
     st_of = _st256 if port else _stretch_f
@@ -1477,8 +1487,14 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
 
     exp_byte, lenb, conf, alive, exp_bit, st_match = _match(
         pb["mp_blk"], pb["mp_pos"], pb["match_len"], sh["match_conf"])
-    _, lenb2, conf2, alive2, exp_bit2, st_match2 = _match(
-        pb["mp2_blk"], pb["mp2_pos"], pb["match2_len"], sh["match2_conf"])
+    m2, mt2 = [], None
+    if g.match2:
+        # the second candidates: the older position of each key
+        _, lenb2, conf2, alive2, exp_bit2, st_match2 = _match(
+            pb["mp2_blk"], pb["mp2_pos"], pb["match2_len"],
+            sh["match2_conf"])
+        m2 = [st_match2]
+        mt2 = dict(exp_bit=exp_bit2, alive=alive2, conf=conf2, lenb=lenb2)
 
     zero_ch = torch.zeros((B, 1, 256), device=dev,
                           dtype=torch.int32 if port else torch.float32)
@@ -1514,7 +1530,7 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
         ppm_rows = torch.where(pck_ok[:, :, None], ppm_rows, 0)
     (st_ppm, pcnt, ptot, pdst, see_d, see_t,
      see_p) = (_ppm_blend_int if port else _ppm_blend_f32)(
-        sh, ppm_rows, C, p_ar)
+        sh, ppm_rows, C, p_ar, g.ppm_excl)
 
     # ---- state bank: packed (state | st13) slots, one row gather
     srowi = (mix32(bases[:, C.scols], C.ssalt[None, :]) >> 8) \
@@ -1581,15 +1597,19 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
         vmx = dict(vlml=vlml, vconf=vconf, vexp=vexp, valive=v_alive)
 
     # ---- run channels (RUNX) from the bank rows' header slot
-    rx_rows = hdr[:, :g.runx_n] & 0xFFFF
-    rx_byte = (rx_rows >> 8) & 0xFF
-    rx_cnt = rx_rows & 0xFF
-    rx_b = torch.clamp(_floor_log2_i(rx_cnt + 1), max=7)
-    rx_conf = _take_cols(sh["runx_conf"], rx_b)
-    rx_pref = (1 << lvl) + (rx_byte[:, :, None] >> (8 - lvl))
-    rx_alive = (node[None, None, :] == rx_pref) & (rx_cnt > 0)[:, :, None]
-    rx_bit = (rx_byte[:, :, None] >> (7 - lvl)) & 1
-    st_runx = _vote(rx_alive, rx_bit, st_of(rx_conf))
+    rx, rxd = [], None
+    if g.runx:
+        rx_rows = hdr[:, :g.runx_n] & 0xFFFF
+        rx_byte = (rx_rows >> 8) & 0xFF
+        rx_cnt = rx_rows & 0xFF
+        rx_b = torch.clamp(_floor_log2_i(rx_cnt + 1), max=7)
+        rx_conf = _take_cols(sh["runx_conf"], rx_b)
+        rx_pref = (1 << lvl) + (rx_byte[:, :, None] >> (8 - lvl))
+        rx_alive = ((node[None, None, :] == rx_pref)
+                    & (rx_cnt > 0)[:, :, None])
+        rx_bit = (rx_byte[:, :, None] >> (7 - lvl)) & 1
+        rx = [_vote(rx_alive, rx_bit, st_of(rx_conf))]
+        rxd = dict(exp_bit=rx_bit, alive=rx_alive, conf=rx_conf, lenb=rx_b)
 
     # ---- JPEG coefficient values (JVAL): the byte distribution of the
     # direct (comp, band, magN, magW) row and, at JVAL=2, of the
@@ -1602,7 +1622,7 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
         jv = [_jval_channel(port, C, r, jx["jvalid"]) for r in jrows]
 
     parts = [st_bank, st_d0[:, None, :], st_d12, st_match, st_lstm, st_ppm,
-             st_sbank, st_dmc] + lm + vm + [st_match2, st_runx] + jv
+             st_sbank, st_dmc] + lm + vm + m2 + rx + jv
     if g.bank_ch > 1 and port:
         cnti = rows & 0x3F
         conf12 = (cnti << 12) // (cnti + 2)                  # p12
@@ -1630,12 +1650,13 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
         brctx,
         torch.clamp(rec_posr, max=63) * 2 + (pb["rec_cnt"] >= 2).long(),
         x86_gate,
-        # MIX_DYN2
+    ] + ([                                                   # MIX_DYN2
         torch.clamp(above_l, max=256),
         (cs["last4"] >> 8) & 0xFF,
         torch.clamp(cs["wordlen"], max=15) * 4 + (cs["cls2reg"] & 3),
         cs["tag"] & 0xFF,
-    ] + _dyn3_gates(cs, pb, exp_byte, pdst, ptot)
+    ] if g.mix_dyn2 else [])
+        + (_dyn3_gates(cs, pb, exp_byte, pdst, ptot) if g.mix_dyn3 else [])
         + (_dyn4_gates(g, C, cs, pb, x, above_l, b1) if g.mix_dyn4 else [])
         # MIX_KIND: the block's content kind x the low class bits
         + ([torch.clamp(pb["blk_kind"], 0, 7) * 8 + (cs["cls2reg"] & 7)]
@@ -1666,24 +1687,28 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
     if g.mix_aux:
         # the LSTM/PPM/DMC stretches fed raw into layer 2 beside layer 1
         st1 = torch.cat([st1, x[:, C.aux_taps]], dim=1)     # (B, M2IN, 256)
-    st_o2 = (srows[:, g.sbank_cols.index(1), 1] & 0xFF).long()
+    # the root state of the order-2 state-bank model (``sbank_gate``)
+    st_o2 = (srows[:, g.sbank_gate, 1] & 0xFF).long()
     clsg = cs["clsreg"] & 63
-    dyn2_idx = torch.stack([
-        cs["word"] & 63,
-        longest,
-        (cs["ohash"][:, 2] >> 17) & 0xFF,
-        st_o2,                                               # order-2 state
-        torch.clamp(cs["linepos"], max=63) * 4 + (cs["cls2reg"] & 3),
-    ], dim=1) + C.mix2_off[None, :]
-    w2x_rows = sh["w2x"][dyn2_idx]                           # (B, 5, M2)
+    dyn2_idx = w2x_rows = None
+    if g.mix2x:
+        dyn2_idx = torch.stack([
+            cs["word"] & 63,
+            longest,
+            (cs["ohash"][:, 2] >> 17) & 0xFF,
+            st_o2,                                           # order-2 state
+            torch.clamp(cs["linepos"], max=63) * 4 + (cs["cls2reg"] & 3),
+        ], dim=1) + C.mix2_off[None, :]
+        w2x_rows = sh["w2x"][dyn2_idx]                       # (B, 5, M2)
     w2n = sh["w2"][level]                                    # (256, M2)
     w3n = sh["w3"][level]                                    # (256, NL2)
     if port:
         dot2 = torch.cat([
             _idot("km,bmk->bk", w2n, st1)[:, None],
             _idot("bm,bmk->bk", sh["w2b"][b1], st1)[:, None],
-            _idot("bm,bmk->bk", sh["w2c"][clsg], st1)[:, None],
-            _idot("bjm,bmk->bjk", w2x_rows, st1)], dim=1)
+            _idot("bm,bmk->bk", sh["w2c"][clsg], st1)[:, None]]
+            + ([_idot("bjm,bmk->bjk", w2x_rows, st1)] if g.mix2x else []),
+            dim=1)
         st2 = torch.clamp(dot2 + (sh["bias2"][None] >> 8), -3071, 3071)
         p2 = squash12_lut(st2 + 4096)
         st3 = torch.clamp(_idot("kj,bjk->bk", w3n, st2)
@@ -1693,8 +1718,9 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
         dot2 = torch.cat([
             (w2n.t()[None] * st1).sum(dim=1)[:, None],
             torch.bmm(sh["w2b"][b1][:, None], st1),
-            torch.bmm(sh["w2c"][clsg][:, None], st1),
-            torch.bmm(w2x_rows, st1)], dim=1) + sh["bias2"][None]
+            torch.bmm(sh["w2c"][clsg][:, None], st1)]
+            + ([torch.bmm(w2x_rows, st1)] if g.mix2x else []),
+            dim=1) + sh["bias2"][None]
         p2 = torch.sigmoid(dot2)
         st2 = torch.clamp(dot2, -ST_CLAMP, ST_CLAMP)         # (B, NL2, 256)
         dot3 = (w3n.t()[None] * st2).sum(dim=1) + sh["bias3"][None]
@@ -1702,11 +1728,13 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
 
     # ---- APM chain: interpolated SSE reads, then the final blend
     o2g = (cs["ohash"][:, 2] >> 17) & 0xFF
-    apm_gates = [
-        b1, 256 + longest, 320 + o2g, 576 + (cs["word"] & 0xFF),
-        832 + torch.clamp(cs["linepos"], max=63) * 4 + (cs["cls2reg"] & 3)]
+    apm_gates = [b1, 256 + longest, 320 + o2g]
+    if g.apm2x:                          # word- and line/class-gated
+        apm_gates += [576 + (cs["word"] & 0xFF),
+                      832 + torch.clamp(cs["linepos"], max=63) * 4
+                      + (cs["cls2reg"] & 3)]
     if g.apm3x:                          # the order-2 bit-history state
-        apm_gates.append(1088 + st_o2)
+        apm_gates.append(576 + 512 * g.apm2x + st_o2)
     apm_idx = torch.stack(apm_gates, dim=1)                  # (B, NA)
     apm_rows = sh["apm"][apm_idx]                            # (B, NA, 33)
     p_tree12 = None
@@ -1766,14 +1794,13 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
                pcnt_eff=pcnt, pck_exp=pck_exp, srowi=srowi, srows=srows,
                see_d=see_d, see_t=see_t, see_p=see_p, ptot=ptot,
                d12rows=d12rows, apm_idx=apm_idx, apm_rows=apm_rows,
-               alive=alive, exp_bit=exp_bit, lenb=lenb, alive2=alive2,
-               exp_bit2=exp_bit2, lenb2=lenb2, conf2=conf2, conf=conf, x=x,
+               alive=alive, exp_bit=exp_bit, lenb=lenb, mt2=mt2, conf=conf,
+               x=x,
                dyn_idx=dyn_idx, w_const=w_const, w_level=w_level, p1=p1,
                st1=st1, p_mix=p_mix, p2=p2, st2=st2, clsg=clsg,
                dyn2_idx=dyn2_idx, longest=longest, apm_tl=tl, apm_frac=frac,
-               st_in=st_in, p_tree=p_tree, p_tree12=p_tree12, rx_b=rx_b,
-               rx_conf=rx_conf,
-               rx_alive=rx_alive, rx_bit=rx_bit, dmc_walk=dmc_walk,
+               st_in=st_in, p_tree=p_tree, p_tree12=p_tree12, rxd=rxd,
+               dmc_walk=dmc_walk,
                lms=lms, vmx=vmx, jx=jx, jrows=jrows, sse2=sse2)
     return p_tree, aux
 
@@ -1781,20 +1808,21 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
 # ------------------------------------------------------------- tree update
 
 
-def _slot_update(slots, target):
-    """Adaptive counter update of packed slots toward target bits (f32)."""
+def _slot_update(slots, target, cap):
+    """Adaptive counter update of packed slots toward target bits (f32);
+    the count saturates at ``cap`` (CNT_CAP)."""
     cnt = (slots & 0x3F).float()
     p12 = ((slots >> 6) & 0xFFF).float()
     p = p12 * (1.0 / 4096.0)
     rate = 1.0 / (cnt + 1.6)
     newp = p + (target - p) * rate
-    newc = torch.clamp(cnt + 1.0, max=float(CNT_CAP))
+    newc = torch.clamp(cnt + 1.0, max=float(cap))
     st13 = torch.clamp(_stretch_f(newp) * 256.0 + 4096.0, 0, 8191)
     return ((st13.int() << 18) | (torch.clamp(newp * 4096.0, 1, 4095).int()
                                   << 6) | newc.int())
 
 
-def _slot_update_int(slots, target_i):
+def _slot_update_int(slots, target_i, cap):
     """Integer twin of _slot_update (portable profile): rate
     65536/(10*cnt+16) ~ 1/(cnt+1.6), st13 through intmath."""
     cnt = slots & 0x3F
@@ -1802,7 +1830,7 @@ def _slot_update_int(slots, target_i):
     r16 = 655360 // (10 * cnt + 16)
     newp = torch.clamp(p12 + (((target_i * 4096 - p12) * r16) >> 16),
                        1, 4095)
-    newc = torch.clamp(cnt + 1, max=CNT_CAP)
+    newc = torch.clamp(cnt + 1, max=cap)
     return (stretch13_lut(newp) << 18) | (newp << 6) | newc
 
 
@@ -1811,13 +1839,13 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte, t):
     STAT_NORM, count-normalized final blend; integer twins under PORT).
     t: the byte index, a 0-d device tensor (MIX_TAU's rate decays with
     it, computed on the device)."""
-    lr = MIX_LR
+    lr = g.mix_lr
     if g.mix_tau:
-        lr = MIX_LR * torch.rsqrt(1.0 + t.float() / g.mix_tau)
+        lr = g.mix_lr * torch.rsqrt(1.0 + t.float() / g.mix_tau)
+    cap = g.cnt_cap
     level, node = C.level, C.node
     B = byte.shape[0]
     dev = byte.device
-    B_f = 1.0 / B
     port = g.port
     i32 = torch.int32
     lvl = level[None, :]
@@ -1835,54 +1863,71 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte, t):
     # ---- bank rows: masked in-row slot updates + the row header
     newrows = torch.where(
         onp_b[:, None, :],
-        _slot_update_int(aux["rows"], target_i[:, None, :]) if port else
-        _slot_update(aux["rows"], target[:, None, :]), aux["rows"])
+        _slot_update_int(aux["rows"], target_i[:, None, :], cap) if port
+        else _slot_update(aux["rows"], target[:, None, :], cap), aux["rows"])
+    # the row header (slot 0): BANK_CK claims the checksum, RUNX refreshes
+    # the run channel (the same byte extends the run, another restarts
+    # it); with neither the header passes through
     hdr_old = aux["hdr"]
-    rx_old_cnt = hdr_old & 0xFF
-    rx_old_byte = (hdr_old >> 8) & 0xFF
-    ncnt = torch.where(rx_old_byte == byte[:, None],
-                       torch.clamp(rx_old_cnt + 1, max=255), 1)
-    hdr_new = (aux["ck_exp"] << 16) | (byte[:, None] << 8) | ncnt
-    newrows[:, :, 0] = hdr_new.to(torch.int32)
+    if g.runx:
+        ncnt = torch.where(((hdr_old >> 8) & 0xFF) == byte[:, None],
+                           torch.clamp((hdr_old & 0xFF) + 1, max=255), 1)
+        run16 = (byte[:, None] << 8) | ncnt
+    else:
+        run16 = hdr_old & 0xFFFF
+    if g.runx or g.bank_ck:
+        ck16 = aux["ck_exp"] if g.bank_ck else hdr_old >> 16
+        newrows[:, :, 0] = ((ck16 << 16) | run16).to(torch.int32)
     _bank_scatter(sh, cfg, aux["rowi"], newrows)
 
     # ---- d0: aggregated dense update (STAT_NORM mean)
+    # (STAT_NORM: the shared statistics move by the mean of the blocks'
+    # deltas, else by their sum)
+    norm = g.stat_norm
     c0 = sh["d0_c"]
     if port:
         delta0 = torch.clamp(((target_i * 4096 - sh["d0_p"][None]) * onp_i
                               ).sum(dim=0).to(i32), -(1 << 20), 1 << 20)
         hits0 = onp_i.sum(dim=0).to(i32)
-        delta0 = delta0 // torch.clamp(hits0, min=1)
-        hits0 = torch.clamp(hits0, max=1)
+        if norm:
+            delta0 = delta0 // torch.clamp(hits0, min=1)
+            hits0 = torch.clamp(hits0, max=1)
         r16_0 = 655360 // (10 * c0 + 16)
         sh["d0_p"] = torch.clamp(
             sh["d0_p"] + ((torch.clamp(delta0, -32768, 32767) * r16_0)
                           >> 16), 1, 4095)
-        sh["d0_c"] = torch.clamp(c0 + hits0, max=CNT_CAP)
+        sh["d0_c"] = torch.clamp(c0 + hits0, max=cap)
     else:
         r0 = 1.0 / (c0 + 1.6)
         delta0 = ((target - sh["d0_p"][None]) * on_path).sum(dim=0)
         hits0 = on_path.sum(dim=0)
-        delta0 = delta0 / torch.clamp(hits0, min=1.0)
-        hits0 = torch.clamp(hits0, max=1.0)
+        if norm:
+            delta0 = delta0 / torch.clamp(hits0, min=1.0)
+            hits0 = torch.clamp(hits0, max=1.0)
         sh["d0_p"] = torch.clamp(sh["d0_p"] + r0 * delta0, 1e-4, 1 - 1e-4)
-        sh["d0_c"] = torch.clamp(c0 + hits0, max=float(CNT_CAP))
+        sh["d0_c"] = torch.clamp(c0 + hits0, max=float(cap))
 
     # ---- d1/d2/bracket arena
     newd = torch.where(
         onp_b[:, None, :],
-        _slot_update_int(aux["d12rows"], target_i[:, None, :]) if port else
-        _slot_update(aux["d12rows"], target[:, None, :]), aux["d12rows"])
+        _slot_update_int(aux["d12rows"], target_i[:, None, :], cap) if port
+        else _slot_update(aux["d12rows"], target[:, None, :], cap),
+        aux["d12rows"])
     _set_rows(sh["d12"], aux["d12_idx"], newd)
 
     # ---- PPM counts (update exclusion PPM_UPD, halve-on-overflow)
     ppm_rows = aux["ppm_rows"]
     obs = torch.gather(ppm_rows, 2, byte[:, None, None].expand(
         B, g.n_ppm, 1))                                      # (B, NP, 1)
-    seen = obs[:, :, 0] > 0
-    rev = torch.flip(seen, [1]).long()
-    above = (torch.cumsum(rev, dim=1) - rev) > 0
-    upd = (~torch.flip(above, [1]))[:, :, None]
+    if g.ppm_upd:
+        # update exclusion: bump only the orders at or above the highest
+        # that already held the byte (all of them for a novel byte)
+        seen = obs[:, :, 0] > 0
+        rev = torch.flip(seen, [1]).long()
+        above = (torch.cumsum(rev, dim=1) - rev) > 0
+        upd = (~torch.flip(above, [1]))[:, :, None]
+    else:
+        upd = torch.ones_like(obs, dtype=torch.bool)
     needs_halve = (obs >= 256 - PPM_INC) & upd
     prow_new = torch.where(needs_halve, ppm_rows >> 1, ppm_rows)
     byte_oh = (node[None, :] == byte[:, None])[:, None, :]
@@ -1916,19 +1961,21 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte, t):
         see_msk = (aux["ptot"] > 0).to(i32)
         d_see = ((((obs_eff == 0).to(i32) * 4096 - aux["see_p"]) * 82)
                  >> 12) * see_msk
-        see_cnt = _scatter_add(n_see, see_flat, see_msk)
         see_acc = _scatter_add(n_see, see_flat, d_see)
+        if norm:
+            see_acc = see_acc // torch.clamp(
+                _scatter_add(n_see, see_flat, see_msk), min=1)
         sh["ppm_see"] = torch.clamp(
-            sh["ppm_see"] + (see_acc // torch.clamp(see_cnt, min=1)
-                             ).view_as(sh["ppm_see"]), 4, 3891)
+            sh["ppm_see"] + see_acc.view_as(sh["ppm_see"]), 4, 3891)
     else:
         see_msk = (aux["ptot"] > 0).float()
         d_see = SEE_RATE * ((obs_eff == 0).float() - aux["see_p"]) * see_msk
-        see_cnt = _scatter_add(n_see, see_flat, see_msk)
         see_acc = _scatter_add(n_see, see_flat, d_see)
+        if norm:
+            see_acc = see_acc / torch.clamp(
+                _scatter_add(n_see, see_flat, see_msk), min=1.0)
         sh["ppm_see"] = torch.clamp(
-            sh["ppm_see"] + (see_acc / torch.clamp(see_cnt, min=1.0)
-                             ).view_as(sh["ppm_see"]), 1e-3, 1.0 - 1e-3)
+            sh["ppm_see"] + see_acc.view_as(sh["ppm_see"]), 1e-3, 1.0 - 1e-3)
 
     # ---- state bank: advance the 8 path slots' automaton states
     NS = g.n_sbank
@@ -1942,11 +1989,12 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte, t):
     sflat = s_ar * 256 + s8
     if port:
         d12s = (1311 * (t8_i[:, None, :] * 4096 - pm)) >> 16  # 0.02*65536
-        sb_cnt = _scatter_add(NS * 256, sflat, torch.ones_like(d12s))
         sb_acc = _scatter_add(NS * 256, sflat, d12s)
-        sh["sbank_p"] = torch.clamp(
-            sh["sbank_p"] + (sb_acc // torch.clamp(sb_cnt, min=1)
-                             ).view(NS, 256), 1, 4095)
+        if norm:
+            sb_acc = sb_acc // torch.clamp(_scatter_add(
+                NS * 256, sflat, torch.ones_like(d12s)), min=1)
+        sh["sbank_p"] = torch.clamp(sh["sbank_p"] + sb_acc.view(NS, 256),
+                                    1, 4095)
         st13 = stretch13_lut(sh["sbank_p"][s_ar, nxt8])
     else:
         errs = t8[:, None, :] - pm
@@ -1957,13 +2005,14 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte, t):
                                )[s_ar, s8]
         sb_cnt = _scatter_add(NS * 256, sflat, torch.ones_like(errs))
         sb_acc = _scatter_add(NS * 256, sflat, rate * errs)
-        sh["sbank_p"] = torch.clamp(
-            sh["sbank_p"] + (sb_acc / torch.clamp(sb_cnt, min=1.0)
-                             ).view(NS, 256), 1e-4, 1 - 1e-4)
-        if g.sbank_adapt:                # one visit per step per state
+        if norm:
+            sb_acc = sb_acc / torch.clamp(sb_cnt, min=1.0)
+        sh["sbank_p"] = torch.clamp(sh["sbank_p"] + sb_acc.view(NS, 256),
+                                    1e-4, 1 - 1e-4)
+        if g.sbank_adapt:                # STAT_NORM: one visit per step
+            seen_c = (sb_cnt > 0).float() if norm else sb_cnt
             sh["sbank_c"] = torch.clamp(
-                sh["sbank_c"] + (sb_cnt > 0).float().view(NS, 256),
-                max=1024.0)
+                sh["sbank_c"] + seen_c.view(NS, 256), max=1024.0)
         p_nxt = sh["sbank_p"][s_ar, nxt8]
         st13 = torch.clamp(_stretch_f(p_nxt) * 256.0 + 4096.0, 0, 8191
                            ).int()
@@ -1982,9 +2031,10 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte, t):
         derr = (frac_hit - conf) * 0.03 * torch.clamp(n_alive, max=1.0)
         oh_len = (C.ar32[None, None, :] == lenb[:, :, None]).float()
         d_mc = (oh_len * derr[:, :, None]).sum(dim=0)
-        active = (derr.abs() > 0).float()
-        n_mc = (oh_len * active[:, :, None]).sum(dim=0)
-        d_mc = d_mc / torch.clamp(n_mc, min=1.0)
+        if norm:
+            active = (derr.abs() > 0).float()
+            n_mc = (oh_len * active[:, :, None]).sum(dim=0)
+            d_mc = d_mc / torch.clamp(n_mc, min=1.0)
         sh[key] = torch.clamp(sh[key] + d_mc, 1e-3, 1 - 1e-3)
 
     def _mc_update_int(key, exp_bit, alive_m, conf, lenb):
@@ -1997,42 +2047,60 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte, t):
             * torch.clamp(n_al, max=1)                       # 0.03 * 4096
         oh_len = (C.ar32[None, None, :] == lenb[:, :, None]).to(i32)
         d_mc = (oh_len * derr[:, :, None]).sum(dim=0).to(i32)
-        n_mc = (oh_len * (derr != 0).to(i32)[:, :, None]).sum(dim=0).to(i32)
-        sh[key] = torch.clamp(sh[key] + d_mc // torch.clamp(n_mc, min=1),
-                              4, 4092)
+        if norm:
+            d_mc = d_mc // torch.clamp((oh_len * (derr != 0).to(i32)[
+                :, :, None]).sum(dim=0).to(i32), min=1)
+        sh[key] = torch.clamp(sh[key] + d_mc, 4, 4092)
 
     mc = _mc_update_int if port else _mc_update
     mc("match_conf", aux["exp_bit"], aux["alive"], aux["conf"], aux["lenb"])
-    mc("match2_conf", aux["exp_bit2"], aux["alive2"], aux["conf2"],
-       aux["lenb2"])
-    mc("runx_conf", aux["rx_bit"], aux["rx_alive"], aux["rx_conf"],
-       aux["rx_b"])
+    for key, m in (("match2_conf", aux["mt2"]), ("runx_conf", aux["rxd"])):
+        if m is not None:
+            mc(key, m["exp_bit"], m["alive"], m["conf"], m["lenb"])
     vmx = aux["vmx"]
     if vmx is not None:
-        # VMATCH: the shared confidence per matched-prefix length, the mean
-        # over the blocks whose line-above byte was alive (STAT_NORM)
+        # VMATCH: the shared confidence per matched-prefix length (STAT_NORM:
+        # the mean over the blocks whose line-above byte was alive)
         v_af = vmx["valive"].float()
         vderr = ((vmx["vexp"] == byte).float() - vmx["vconf"]) * 0.03 * v_af
         voh = (C.ar32[None, :] == vmx["vlml"][:, None]).float()
-        d_vm = (voh * vderr[:, None]).sum(dim=0) \
-            / torch.clamp((voh * v_af[:, None]).sum(dim=0), min=1.0)
+        d_vm = (voh * vderr[:, None]).sum(dim=0)
+        if norm:
+            d_vm = d_vm / torch.clamp((voh * v_af[:, None]).sum(dim=0),
+                                      min=1.0)
         sh["vmatch_conf"] = torch.clamp(sh["vmatch_conf"] + d_vm, 1e-3,
                                         1 - 1e-3)
     lms = aux["lms"]
     if lms is not None:
-        # the shared confidence per error bucket (STAT_NORM mean; at LMS=2
-        # only media blocks teach it)
+        # the shared confidence per error bucket (STAT_NORM: the mean; at
+        # LMS=2 only media blocks teach it)
         lderr = ((lms["pbyte"] == byte).float() - lms["conf"]) * 0.02
         if lms["med"] is not None:
             lderr = lderr * lms["med"].float()
         loh = (C.ar16[None, :] == lms["errb"][:, None]).float()
-        d_lm = (loh * lderr[:, None]).sum(dim=0) \
-            / torch.clamp(loh.sum(dim=0), min=1.0)
+        d_lm = (loh * lderr[:, None]).sum(dim=0)
+        if norm:
+            d_lm = d_lm / torch.clamp(loh.sum(dim=0), min=1.0)
         sh["lms_conf"] = torch.clamp(sh["lms_conf"] + d_lm, 1e-3, 1 - 1e-3)
     if port:
         return _update_mixers_int(g, C, sh, aux, target_i, onp_i, n8, t8_i)
 
-    # ---- mixers (MIX_NORM: per-row means over the blocks hitting a row)
+    # ---- mixers (MIX_NORM: per-row means over the blocks hitting a row,
+    # else their sums)
+    mnorm = g.mix_norm
+    B_f = 1.0 / B if mnorm else 1.0
+
+    def rows_step(w, n, idx, d):
+        # the gated rows' step: the mean of the blocks hitting a row, or
+        # (MIX_NORM=0) the sum
+        acc = _scatter_add(n, idx, d)
+        if mnorm:
+            acc = acc / torch.clamp(_scatter_add(n, idx, torch.ones(
+                idx.shape, device=dev)).view((n,) + (1,) * (d.dim()
+                                                            - idx.dim())),
+                min=1.0)
+        return w + lr * acc
+
     x = aux["x"]
     err1 = (target[:, None, :] - aux["p1"]) * on_path[:, None, :]
     dws = torch.bmm(err1, x.transpose(1, 2))                 # (B, M1, NIN)
@@ -2042,10 +2110,18 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte, t):
     w1[0] = aux["w_const"] + lr * B_f * dws[:, 0].sum(dim=0)
     dl = torch.einsum("lk,bk,bnk->ln", C.lvl_onehot, err1[:, 1], x)
     w1[1:9] = aux["w_level"] + lr * B_f * dl
-    cnt1 = _scatter_add(g.mix1_total, aux["dyn_idx"],
-                        torch.ones(aux["dyn_idx"].shape, device=dev))
-    acc1 = _scatter_add(g.mix1_total, aux["dyn_idx"], dws[:, 2:])
-    sh["w1"] = w1 + lr * acc1 / torch.clamp(cnt1[:, None], min=1.0)
+    if not mnorm and g.mix_boost:
+        # MIX_BOOST: a row seen c times learns at lr (1 + MIX_BOOST N /
+        # (c + N)), N = MIX_BOOST_N, the counts kept per row (w1_cnt)
+        nb = g.mix_boost_n
+        boost = 1.0 + g.mix_boost * nb / (sh["w1_cnt"][aux["dyn_idx"]] + nb)
+        sh["w1"] = w1 + _scatter_add(g.mix1_total, aux["dyn_idx"],
+                                     (lr * boost)[:, :, None] * dws[:, 2:])
+        sh["w1_cnt"] = sh["w1_cnt"] + _scatter_add(
+            g.mix1_total, aux["dyn_idx"],
+            torch.ones(aux["dyn_idx"].shape, device=dev))
+    else:
+        sh["w1"] = rows_step(w1, g.mix1_total, aux["dyn_idx"], dws[:, 2:])
     sh["bias1"] = sh["bias1"] + lr * B_f * err1.sum(dim=0)
 
     st1 = aux["st1"]
@@ -2055,17 +2131,11 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte, t):
     dw2b = torch.bmm(st1, err2[:, 1, :, None])[:, :, 0]     # (B, M2)
     dw2c = torch.bmm(st1, err2[:, 2, :, None])[:, :, 0]
     ones = torch.ones(B, device=dev)
-    cb = _scatter_add(256, aux["b1"], ones)
-    ab = _scatter_add(256, aux["b1"], dw2b)
-    sh["w2b"] = sh["w2b"] + lr * ab / torch.clamp(cb[:, None], min=1.0)
-    cc = _scatter_add(64, aux["clsg"], ones)
-    ac = _scatter_add(64, aux["clsg"], dw2c)
-    sh["w2c"] = sh["w2c"] + lr * ac / torch.clamp(cc[:, None], min=1.0)
-    dw2x = torch.bmm(err2[:, 3:], st1.transpose(1, 2))       # (B, 5, M2)
-    c2x = _scatter_add(g.mix2_total, aux["dyn2_idx"],
-                       torch.ones(aux["dyn2_idx"].shape, device=dev))
-    a2x = _scatter_add(g.mix2_total, aux["dyn2_idx"], dw2x)
-    sh["w2x"] = sh["w2x"] + lr * a2x / torch.clamp(c2x[:, None], min=1.0)
+    sh["w2b"] = rows_step(sh["w2b"], 256, aux["b1"], dw2b)
+    sh["w2c"] = rows_step(sh["w2c"], 64, aux["clsg"], dw2c)
+    if g.mix2x:
+        dw2x = torch.bmm(err2[:, 3:], st1.transpose(1, 2))   # (B, 5, M2)
+        sh["w2x"] = rows_step(sh["w2x"], g.mix2_total, aux["dyn2_idx"], dw2x)
     sh["bias2"] = sh["bias2"] + lr * B_f * err2.sum(dim=0)
 
     err3 = (target - aux["p_mix"]) * on_path
@@ -2099,14 +2169,16 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte, t):
         apm_idx = torch.cat([apm_idx, g.sse2_base + sse2["g"][:, None]], 1)
     _set_rows(sh["apm"], apm_idx, newapm)
 
-    # ---- final blend weights (match-state gated, count-normalized)
+    # ---- final blend weights (match-state gated, count-normalized;
+    # W_APM_LEARN=0 keeps them at their start)
     err_f = (target - aux["p_tree"]) * on_path
-    dwa = torch.bmm(aux["st_in"], err_f[:, :, None])[:, :, 0]
-    cnt = _scatter_add(64, aux["longest"], ones)
-    acc = _scatter_add(64, aux["longest"], dwa)
-    sh["w_apm"] = torch.clamp(
-        sh["w_apm"] + lr * acc / torch.clamp(cnt[:, None], min=1.0),
-        -4.0, 4.0)
+    if g.w_apm_learn:
+        dwa = torch.bmm(aux["st_in"], err_f[:, :, None])[:, :, 0]
+        cnt = _scatter_add(64, aux["longest"], ones)
+        acc = _scatter_add(64, aux["longest"], dwa)
+        sh["w_apm"] = torch.clamp(
+            sh["w_apm"] + lr * acc / torch.clamp(cnt[:, None], min=1.0),
+            -4.0, 4.0)
     if sse2 is not None:
         # the SSE2 stage's mixer, the mean over the blocks of each gate
         ds = torch.stack([(err_f * sse2["stf"]).sum(dim=1),
@@ -2127,8 +2199,12 @@ def _update_mixers_int(g, C, sh, aux, target_i, onp_i, n8, t8_i):
     order), the MIX_NORM means floor divisions, and weights clip to
     +-8*65536 (the _idot bound)."""
     i32 = torch.int32
-    lr12 = max(1, int(round(MIX_LR * 4096)))
+    lr12 = max(1, int(round(g.mix_lr * 4096)))
     B = target_i.shape[0]
+    mnorm = g.mix_norm
+    # MIX_NORM: the batch means of the const, level and bias deltas and the
+    # per-row means of the gated rows' (floor divisions), else their sums
+    mean_b = (lambda v: v // B) if mnorm else (lambda v: v)    # noqa: E731
     wclip = 8 * 65536
     x = aux["x"]
     sum_b = lambda v: v.sum(dim=0).to(i32)                    # noqa: E731
@@ -2137,12 +2213,14 @@ def _update_mixers_int(g, C, sh, aux, target_i, onp_i, n8, t8_i):
         # sum_k [level(k) == l] e[b, k] y[b, n, k], each (l, b) >> 8, then
         # the batch mean: (8, N)
         d = ieinsum("lk,bk,bnk->lbn", C.lvl_i, e, y) >> 8
-        return d.sum(dim=1).to(i32) // B
+        return mean_b(d.sum(dim=1).to(i32))
 
-    def rows_mean(n, idx, d):
+    def rows_mean(n, idx, d, norm=True):
+        acc = _scatter_add(n, idx, d)
+        if not norm:
+            return acc
         cnt = _scatter_add(n, idx, torch.ones(idx.shape, dtype=i32,
                                               device=idx.device))
-        acc = _scatter_add(n, idx, d)
         return acc // torch.clamp(cnt, min=1).view((n,) + (1,) * (d.dim()
                                                                 - idx.dim()))
 
@@ -2155,10 +2233,11 @@ def _update_mixers_int(g, C, sh, aux, target_i, onp_i, n8, t8_i):
     n_pri = g.n_primary
     dws8 = torch.cat([dws8[:, :, :n_pri], dws8[:, :, n_pri:] >> 2], dim=2)
     w1 = sh["w1"].clone()
-    w1[0] = step(aux["w_const"], sum_b(dws8[:, 0]) // B)
+    w1[0] = step(aux["w_const"], mean_b(sum_b(dws8[:, 0])))
     w1[1:9] = step(aux["w_level"], lvl_sum(err1[:, 1], x))
-    sh["w1"] = step(w1, rows_mean(g.mix1_total, aux["dyn_idx"], dws8[:, 2:]))
-    sh["bias1"] = sh["bias1"] + ((lr12 * (sum_b(err1) // B)) >> 8)
+    sh["w1"] = step(w1, rows_mean(g.mix1_total, aux["dyn_idx"], dws8[:, 2:],
+                                  mnorm))
+    sh["bias1"] = sh["bias1"] + ((lr12 * mean_b(sum_b(err1))) >> 8)
 
     # ---- layer 2: level rows, byte- and class-gated rows, gated rows
     st1 = aux["st1"]
@@ -2167,16 +2246,17 @@ def _update_mixers_int(g, C, sh, aux, target_i, onp_i, n8, t8_i):
     for key, idx, n, j in (("w2b", aux["b1"], 256, 1),
                            ("w2c", aux["clsg"], 64, 2)):
         d = ieinsum("bk,bmk->bm", err2[:, j], st1) >> 8
-        sh[key] = step(sh[key], rows_mean(n, idx, d))
-    d2x = ieinsum("bjk,bmk->bjm", err2[:, 3:], st1) >> 8
-    sh["w2x"] = step(sh["w2x"], rows_mean(g.mix2_total, aux["dyn2_idx"],
-                                          d2x))
-    sh["bias2"] = sh["bias2"] + ((lr12 * (sum_b(err2) // B)) >> 8)
+        sh[key] = step(sh[key], rows_mean(n, idx, d, mnorm))
+    if g.mix2x:
+        d2x = ieinsum("bjk,bmk->bjm", err2[:, 3:], st1) >> 8
+        sh["w2x"] = step(sh["w2x"], rows_mean(g.mix2_total, aux["dyn2_idx"],
+                                              d2x, mnorm))
+    sh["bias2"] = sh["bias2"] + ((lr12 * mean_b(sum_b(err2))) >> 8)
 
     # ---- layer 3
     err3 = (target_i * 4096 - aux["p_mix"]) * onp_i
     sh["w3"] = step(sh["w3"], lvl_sum(err3, aux["st2"]))
-    sh["bias3"] = sh["bias3"] + ((lr12 * (sum_b(err3) // B)) >> 8)
+    sh["bias3"] = sh["bias3"] + ((lr12 * mean_b(sum_b(err3))) >> 8)
 
     # ---- APMs: integer deltas at the 8 path nodes, scatter-add, clip
     errp = (((t8_i * 4096 - torch.gather(aux["p_tree12"], 1, n8)) * 82)
@@ -2206,9 +2286,10 @@ def _update_mixers_int(g, C, sh, aux, target_i, onp_i, n8, t8_i):
 
     # ---- final blend weights (match-state gated, count-normalized)
     err_f = (target_i * 4096 - aux["p_tree12"]) * onp_i
-    dwa = ieinsum("bk,bjk->bj", err_f, aux["st_in"]) >> 8
-    sh["w_apm"] = step(sh["w_apm"], rows_mean(64, aux["longest"], dwa),
-                       clip=262144)
+    if g.w_apm_learn:
+        dwa = ieinsum("bk,bjk->bj", err_f, aux["st_in"]) >> 8
+        sh["w_apm"] = step(sh["w_apm"], rows_mean(64, aux["longest"], dwa),
+                           clip=262144)
     if sse2 is not None:
         # the SSE2 stage's mixer (|sum| < 8 * 4096 * 3072 per block)
         ds = torch.stack([ieinsum("bk,bk->b", err_f, sse2["stf"]),
@@ -2233,19 +2314,31 @@ def _aux_writes_b(cfg, g, sh, pb, byte, t, ind_key_prev, ind_prev_val):
             keys.append(mix32(mix32(cs["last_word2"], cs["last_word"]),
                               (cs["word"] + 0x85EB) & M32))
         else:
-            keys.append(cs["ohash"][:, o])
+            # an order past the hashes reads as the JAX package's indexing
+            # reads it: a negative one counts from the end, then it clamps
+            n = cs["ohash"].shape[1]
+            keys.append(cs["ohash"][:, min(max(o + n if o < 0 else o, 0),
+                                          n - 1)])
     h = mix32(torch.stack(keys, dim=1), 0x2545F491) & ((1 << cfg.mbits) - 1)
-    moff = torch.arange(g.n_match, device=dev) * (2 << cfg.mbits)
-    midx = moff[None, :] + 2 * h                             # (B, NM)
+    ms = g.mstride                  # MATCH2: a 2-deep recency stack per key
+    moff = torch.arange(g.n_match, device=dev) * (ms << cfg.mbits)
+    midx = moff[None, :] + ms * h                            # (B, NM)
     aux_tbl = sh["aux_tbl"]
     cand = aux_tbl[midx].long()                              # int32 view
-    cand2 = aux_tbl[midx + 1].long()
     ins = ((bar[:, None] << POS_BITS) | (t + 1)).expand(B, g.n_match)
-    ind_base = 2 * g.n_match * (1 << cfg.mbits)
+    ind_base = ms * g.n_match * (1 << cfg.mbits)
     ind_off = ind_base + torch.arange(g.n_ind, device=dev) * (1 << cfg.ibits)
     newv = mix32(ind_prev_val, byte[:, None])
-    widx = torch.cat([midx, midx + 1, ind_off[None, :] + ind_key_prev], 1)
-    wval = torch.cat([to_bits(ins), cand.to(torch.int32), to_bits(newv)], 1)
+    ind_idx = ind_off[None, :] + ind_key_prev
+    if g.match2:
+        # the recency shift: slot 1 takes the old latest, slot 0 the new
+        cand2 = aux_tbl[midx + 1].long()
+        widx = torch.cat([midx, midx + 1, ind_idx], 1)
+        wval = torch.cat([to_bits(ins), cand.to(torch.int32),
+                          to_bits(newv)], 1)
+    else:
+        widx = torch.cat([midx, ind_idx], 1)
+        wval = torch.cat([to_bits(ins), to_bits(newv)], 1)
     _set_rows(aux_tbl.view(-1, 1), widx, wval[..., None])
 
     hist = pb["hist"]
@@ -2262,7 +2355,8 @@ def _aux_writes_b(cfg, g, sh, pb, byte, t, ind_key_prev, ind_prev_val):
                                 (c_pos > 0).long())
 
     _advance("mp_blk", "mp_pos", "match_len", cand)
-    _advance("mp2_blk", "mp2_pos", "match2_len", cand2)
+    if g.match2:
+        _advance("mp2_blk", "mp2_pos", "match2_len", cand2)
     return sh, pb
 
 
@@ -2282,7 +2376,10 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device):
     lcfg = _lstm_cfg(cfg, g)
     lstm_update = (ilstm_shared_byte_update if g.port
                    else lstm_shared_byte_update)
-    ind_off = 2 * g.n_match * (1 << cfg.mbits) + torch.arange(
+    if cfg.dmc_nodes and g.dmc_levels < 1:
+        raise FormatError(f"DMC_LEVELS={g.dmc_levels}: the DMC walk needs a "
+                          "depth of 1..8 (0 disables DMC: dmc_nodes=0)")
+    ind_off = g.mstride * g.n_match * (1 << cfg.mbits) + torch.arange(
         g.n_ind, device=device) * (1 << cfg.ibits)
 
     def ind_keys(cs):
@@ -2738,7 +2835,7 @@ def make_pretrainer(cfg: EngineConfig, g: Gates, device, graph=True):
             for lo in range(0, len(pad), s):
                 seg.run(inp[lo:lo + s], outputs=False)
             sh = seg.state()[0]
-            sh["aux_tbl"][:2 * g.n_match * (1 << pcfg.mbits)] = 0
+            sh["aux_tbl"][:g.mstride * g.n_match * (1 << pcfg.mbits)] = 0
         return sh
 
     return pretrain

@@ -8,13 +8,12 @@ incompressible block stored raw, and a decode group re-feeding raw-stored
 and padding lanes in encode mode so the shared model evolves exactly as it
 did while encoding.
 
-The port codes the fast profile at two gate sets (the defaults and the
-bench speed profile) and the portable integer profile (PORT=1 on top of
-the defaults, ``--portable``), the defaults of either profile with the
-off-by-default mechanisms of ``engine.make_gates`` on top, on any
-content.  The CLI takes the model gates from the environment, as the JAX
-package's does (``SSE2=1 python -m cmix_tpu_torch.runner c ...``; the
-archive's gate record pins them for decode).  ``compress`` runs the
+The port codes every gate set the JAX package codes (``engine.make_gates``),
+in the fast profile and the portable integer profile (PORT=1,
+``--portable``), on any content.  The CLI takes the model gates from the
+environment, as the JAX package's does (``SSE2=1 python -m
+cmix_tpu_torch.runner c ...``; the archive's gate record pins them for
+decode).  ``compress`` runs the
 content transforms (``preprocess/wrt.transform``: E8/E9 on x86 code, the
 24-bit color decorrelation, JPEG recoding), routes the content gates on
 top of the caller's (X86X=2 for x86 code, GRID2=1 for strided media or a
@@ -28,18 +27,22 @@ group starts from the shared state pretrained on the dictionary
 (``engine.make_pretrainer``, cached by ``utils/checkpoint.py``); the
 header carries the dictionary's fingerprint, and decode needs the same
 file.  A portable archive is byte-identical to the JAX package's and
-decodes on either package and any device.  ``--resume`` raises
-NotImplementedError naming the ROADMAP.md item that will port it.
+decodes on either package and any device.  ``--resume JOURNAL`` keeps
+the finished coding groups' streams in a journal, so that a rerun of an
+interrupted compress skips them (``_resume_key`` says which journal a run
+trusts).
 
 On the card the segments run as a captured CUDA graph of the byte step
 (``engine.make_segment_fn``), the port's ``jax.jit`` of the JAX package's
 segment scan.
 
     python -m cmix_tpu_torch.runner c|d|t INPUT OUTPUT [--portable]
-        [--dict PATH|auto] [--device cpu] [--stats] [--profile DIR]
+        [--dict PATH|auto] [--device cpu] [--resume JOURNAL] [--stats]
+        [--profile DIR]
 """
 
 import argparse
+import hashlib
 import os
 import struct
 import time
@@ -74,7 +77,6 @@ _NO_DICT = b"\0" * 8
 # --dict auto: the port's copy of cmix_tpu/data/english.dic
 AUTO_DICT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                          "english.dic")
-_LATER_RESUME = "ROADMAP.md queue 1, item 13 (--resume journal)"
 # dummy lanes' JPEGX offset: off every plane (as the JAX runner pads)
 _NO_JPEG = -(1 << 31) + 1
 
@@ -245,6 +247,53 @@ def _read_seg_table(archive, off):
     return seg_meta, off
 
 
+def _resume_key(payload, cfg, eb, flags, g, device):
+    """The journal's 16-byte key: the JAX package's fields (format version,
+    config, exec batch, flags, payload), and beyond them the gate record
+    and, in the fast profile, the device type the groups were coded on
+    (``device``: a torch.device), whose archives decode only there."""
+    h = hashlib.sha256()
+    h.update(repr((FORMAT_VERSION, cfg, eb, flags)).encode())
+    h.update(b"gates:" + g.blob())
+    if not g.port:
+        h.update(b"device:" + device.type.encode())
+    h.update(payload)
+    return h.digest()[:16]
+
+
+def _resume_load(path, key):
+    """The whole records of a journal written under ``key`` ([(raw,
+    stream)]; a torn last record is dropped), or [] for a missing journal
+    or one of another key."""
+    try:
+        with open(path, "rb") as f:
+            blob = f.read()
+    except OSError:
+        return []
+    if blob[:4] != b"TCMR" or blob[4:20] != key:
+        return []
+    streams, off = [], 20
+    while off + 5 <= len(blob):
+        raw, L = blob[off] != 0, struct.unpack_from("<I", blob, off + 1)[0]
+        if off + 5 + L > len(blob):
+            break
+        streams.append((raw, blob[off + 5:off + 5 + L]))
+        off += 5 + L
+    return streams
+
+
+def _resume_save(path, key, streams):
+    """Rewrite the journal atomically: ``TCMR``, the key, then a record
+    (u8 raw, u32 length, stream) per block (a temporary file renamed)."""
+    parts = [b"TCMR", key]
+    for raw, s in streams:
+        parts += [struct.pack("<BI", 1 if raw else 0, len(s)), s]
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(b"".join(parts))
+    os.replace(tmp, path)
+
+
 def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
              max_batch: int = 64, dictionary: str = None, gates=None,
              device="cuda", resume_path=None, meter=None,
@@ -253,18 +302,18 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
 
     dictionary: path of a word list ("auto": AUTO_DICT); enables the WRT
     text transform where it shrinks the payload, and pretraining.
-    gates: mapping of gate name -> value (missing = default); the port
-    accepts the defaults, ``engine.BENCH_GATES``, and PORT=1 (with any
-    ILSTM_LRX/ILSTM_ADAM) on top of the defaults, each with the
-    off-by-default mechanisms ``engine.make_gates`` lists.  The
-    content-routed gates (JVAL among them) are then set from the content
-    and ``_routed_gates``'s environment variables, whatever the caller
-    gave.
+    gates: mapping of gate name -> value (missing = default), any set
+    ``engine.make_gates`` accepts.  The content-routed gates (JVAL among
+    them) are then set from the content and ``_routed_gates``'s
+    environment variables, whatever the caller gave.
+    resume_path: a journal of the finished coding groups' streams: each
+    group's are saved once they are on the host, a run restarted with the
+    same input, config, gates and (in the fast profile) device type skips
+    the groups it holds, and the journal goes once the archive is whole
+    (``_resume_key``: a journal of anything else is ignored, whole groups
+    only are kept).
     meter: a ``utils.profiling.Meter`` the transcoder's phases feed;
     show_progress: a percentage ticker on stderr."""
-    if resume_path is not None:
-        raise NotImplementedError(
-            f"--resume is not ported to cmix_tpu_torch yet ({_LATER_RESUME})")
     if cfg.dmc_nodes & (cfg.dmc_nodes - 1):
         raise FormatError(f"dmc_nodes={cfg.dmc_nodes} must be 0 or a power "
                           "of two (the archive header stores its log2)")
@@ -299,9 +348,16 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
     fields = _block_fields(seg_meta, nb, n)
     ticker = _ticker(show_progress, nb * n)
     streams = []
+    if resume_path is not None:
+        rkey = _resume_key(payload, cfg, eb, flags, g, dev)
+        streams = _resume_load(resume_path, rkey)[:nb]
+        if len(streams) < nb:                # whole groups only
+            streams = streams[:len(streams) // eb * eb]
     for lo in range(0, nb, eb):
         batch = blocks[lo:lo + eb]
         b = batch.shape[0]
+        if lo + b <= len(streams):           # coded by an earlier run
+            continue
         if b < eb:
             batch = np.concatenate(
                 [batch, np.zeros((eb - b, n), dtype=np.uint8)], axis=0)
@@ -317,6 +373,8 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
                     :min(n, len(payload) - (lo + i) * n)]))
             else:
                 streams.append((False, bytes(out[i, :L].tobytes())))
+        if resume_path is not None:
+            _resume_save(resume_path, rkey, streams)
     blob = g.blob()
     header = MAGIC + struct.pack(
         _HDR, FORMAT_VERSION, flags, cfg.block_size.bit_length() - 1,
@@ -328,6 +386,11 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
     segtbl = _seg_table(seg_meta) if flags & _FLAG_WRT else b""
     lens = b"".join(struct.pack("<I", len(s) | (_RAW_FLAG if raw else 0))
                     for raw, s in streams)
+    if resume_path is not None:              # the archive is whole
+        try:
+            os.remove(resume_path)
+        except OSError:
+            pass
     return header + segtbl + lens + b"".join(s for _, s in streams)
 
 
@@ -451,7 +514,9 @@ def main(argv=None):
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the model runs (cpu only when asked)")
     ap.add_argument("--resume", default=None, metavar="JOURNAL",
-                    help="failure-recovery journal (not ported yet: raises)")
+                    help="failure-recovery journal: finished coding groups "
+                    "are kept there, and a rerun of the same command skips "
+                    "them")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace (Chrome trace "
                     "format) to DIR/trace.json")

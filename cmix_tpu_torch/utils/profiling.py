@@ -155,6 +155,21 @@ GATED = {"SSE2": 1, "APM3X": 1, "MIX_DYN4": 1, "MIX_KIND": 1, "MIX_AUX": 1,
 GATED_PORT = dict({k: v for k, v in GATED.items()
                    if k in ("SSE2", "APM3X", "MIX_DYN4", "MIX_KIND",
                             "MIX_AUX", "APM_FIXED")}, PORT=1)
+# two sets of the remaining gate values: LEAN switches the default-on
+# components off together, KNOBS moves the value knobs together (shorter
+# order lists, a state-bank column list without the order-2 column 1; a
+# lower mixer rate, since under MIX_NORM=0 the mixers' steps are sums over
+# the blocks: at 6e-3 the PORT=1 archive of testdata/gated.raw outgrew its
+# input, 4477 B of 4302, at 1e-3 it is 3458 B)
+LEAN = {"WIKI": 0, "MATCH2": 0, "RUNX": 0, "MIX2X": 0, "APM2X": 0,
+        "STEMX": 0, "CTX2": 0, "CTX3": 0, "CTX4": 0, "BANK_CK": 0,
+        "PPM_EXCL": 0, "PPM_UPD": 0, "PPM_CK": 0, "PPM_DEEP": 0,
+        "MIX_DYN2": 0, "MIX_DYN3": 0, "W_APM_LEARN": 0}
+KNOBS = {"BANK_CK": 1, "BANK_CH": 2, "MIX_NORM": 0, "STAT_NORM": 0,
+         "MIX_LR": 1e-3, "CNT_CAP": 30, "CMIX_N_IND": 4, "RUNX_N": 16,
+         "DMC_LEVELS": 4, "CMIX_MATCH_ORDERS": "2,4,8,16,100",
+         "CMIX_PPM_ORDERS": "1,2,3,5,8,16",
+         "CMIX_SBANK_COLS": "0,2,3,5,10,14,24"}
 _JPEG_ROUTES = {"JPEGX": 1, "GRID2": 1, "JVAL": 2}
 GATE_SETS = {"bench": E.BENCH_GATES,
              "bench-x86": dict(E.BENCH_GATES, X86X=2),
@@ -163,7 +178,8 @@ GATE_SETS = {"bench": E.BENCH_GATES,
              "portable": {"PORT": 1},
              "wrtw": {"WRTW": 1},
              "gated": dict(GATED, **_JPEG_ROUTES),
-             "gated-portable": dict(GATED_PORT, **_JPEG_ROUTES)}
+             "gated-portable": dict(GATED_PORT, **_JPEG_ROUTES),
+             "lean": LEAN, "knobs": KNOBS}
 # the byte step's widths: bench.py's, or the runner CLI's (tbits 18, mbits
 # 20, pbits 20, LSTM 256, 16384 DMC nodes) at its 16384-byte block
 WIDTHS = {"bench": dict(tbits=18, mbits=18, ibits=16),

@@ -1,7 +1,7 @@
 """The port's entry points on the CPU: the CLI round trip, raw-stored blocks
-re-fed in a decode group, content-routed input, and every gate and option
-the port still refuses (NotImplementedError naming the ROADMAP.md item that
-ports it, FormatError where the JAX package refuses too)."""
+re-fed in a decode group, content-routed input, gate sets it once refused
+(now accepted with the JAX package's widths), the --resume journal through
+the runner, and the FormatErrors it shares with the JAX package."""
 
 import struct
 
@@ -10,10 +10,12 @@ import pytest
 import torch
 
 import torch_parity  # noqa: F401  (one torch thread per worker)
+from cmix_tpu import engine as je
 from cmix_tpu.preprocess import wrt as jwrt
 from cmix_tpu_torch import engine as E
 from cmix_tpu_torch import runner
 from cmix_tpu_torch.preprocess import wrt
+from torch_parity import jax_gates  # noqa: F401
 
 SMALL = E.EngineConfig(block_size=64, seg_size=64, tbits=12, mbits=12,
                        ibits=10, pbits=12, lstm_hidden=32, lstm_horizon=4,
@@ -67,19 +69,31 @@ def test_empty_input_roundtrip():
     assert runner.decompress(arc, device="cpu") == b""
 
 
+# gate sets the port refused until it ported the remaining gate values (the
+# test keeps its name): now accepted with the JAX package's gate record and
+# widths, and a round trip through the runner (which routes X86X and LMS
+# from the content: 0 on text)
 @pytest.mark.parametrize("gates", [
     {"X86X": 1}, {"PORT": 1, "CTX4": 0}, {"LMS": 1},
     {"MIX_NORM": 0},                     # a value knob
     {"CNT_CAP": 30},
     {"DMC_LEVELS": 7},                   # a part of the bench set alone
     dict(E.BENCH_GATES, CTX4=1),
-    dict(E.BENCH_GATES, PORT=1),         # PORT only on the default gates
+    dict(E.BENCH_GATES, PORT=1),         # PORT on the bench gates
     dict(E.BENCH_GATES, SSE2=1)])        # a mechanism on the bench gates
-def test_unported_gate_sets_raise(gates):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        E.make_gates(gates)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        runner.compress(_text(64), SMALL, gates=gates, device="cpu")
+def test_unported_gate_sets_raise(gates, jax_gates):
+    jax_gates(gates)
+    g = E.make_gates(gates)
+    assert g.blob() == je.gates_blob()
+    assert (g.n_bank, g.n_inputs, g.mix1_total, g.n_l2, g.n_apm,
+            g.dmc_levels) == (je.N_BANK, je.N_INPUTS, je._MIX1_TOTAL,
+                              je.N_L2, je.N_APM, min(je.dmc.DMC_LEVELS, 8))
+    data = _text(64, 500)
+    arc = runner.compress(data, TINY, gates=gates, device="cpu")
+    routed = dict(gates, X86X=0, LMS=0)
+    off = 4 + runner._HDR_LEN
+    assert arc[off + 2:off + 2 + arc[off]] == E.make_gates(routed).blob()
+    assert runner.decompress(arc, device="cpu") == data
 
 
 def test_unknown_gate_is_a_format_error():
@@ -140,9 +154,13 @@ def test_dictionary_resume_and_segmented_archives_raise(tmp_path,
     with pytest.raises(E.FormatError, match="requires the dictionary"):
         runner.main(["d", str(arc_path), str(tmp_path / "c"), "--device",
                      "cpu"])
-    with pytest.raises(NotImplementedError, match="resume"):
-        runner.compress(_text(64), SMALL, resume_path=str(tmp_path / "j"),
-                        device="cpu")
+    # --resume: a journalled compress writes the archive a plain one writes,
+    # and removes its journal once the archive is whole
+    journal = tmp_path / "j"
+    plain = runner.compress(_text(64), TINY, max_batch=2, device="cpu")
+    assert runner.compress(_text(64), TINY, max_batch=2, device="cpu",
+                           resume_path=str(journal)) == plain
+    assert not journal.exists()
     # flags bit 0 without the segment table it announces
     arc = bytearray(runner.compress(b"", TINY, device="cpu"))
     arc[5] = runner._FLAG_WRT

@@ -155,7 +155,9 @@ def _lanes(b, n, off=0):
 
 
 @pytest.mark.parametrize("gates", [{}, {"PORT": 1}, GATE_SETS["gated"],
-                                   GATE_SETS["gated-portable"]])
+                                   GATE_SETS["gated-portable"],
+                                   GATE_SETS["lean"], GATE_SETS["knobs"],
+                                   dict(GATE_SETS["knobs"], PORT=1)])
 def test_graph_archives_equal_the_eager_steps(gpu, gates):
     """Two groups of 3 lanes through one transcoder (the second copied
     into the captured graph's buffers), four segments each: the graph's

@@ -4,8 +4,9 @@ MIX_BOOST): ``engine.make_gates`` accepts each alone and all together in
 every profile the JAX package codes them in, with the JAX package's gate
 record and derived widths; it raises FormatError where the JAX package
 does, and where the JAX package accepts a set that its byte step cannot
-trace (no archive carries it); everything else still raises
-NotImplementedError naming ROADMAP.md item 15b."""
+trace (no archive carries it).  The mechanisms at other values and mixed
+with the remaining gates are accepted too (test_torch_gates_shapes.py has
+the wider list)."""
 
 import jax
 import jax.numpy as jnp
@@ -76,26 +77,47 @@ def test_sets_the_jax_step_cannot_trace_are_format_errors(env, err,
     with pytest.raises(E.FormatError):
         E.make_gates(env)
     jax_gates(env)
+    with pytest.raises(err):
+        _eval_step(dmc_nodes=0)
+
+
+def _eval_step(dmc_nodes=4096):
+    """Trace (``jax.eval_shape``) one byte step of the JAX package at its
+    live gates, small widths, B=2."""
     kw = dict(block_size=64, seg_size=64, tbits=10, mbits=10, ibits=8,
-              pbits=10, lstm_hidden=0, dmc_nodes=0)
+              pbits=10, lstm_hidden=0, dmc_nodes=dmc_nodes)
     cfg = je.EngineConfig(**kw)
     tile = lambda x: jnp.tile(x[None], (2,) + (1,) * x.ndim)   # noqa: E731
     pb = jax.tree_util.tree_map(tile, je.init_perblock(cfg))
     cd = jax.tree_util.tree_map(tile, je.init_coder(cfg))
-    with pytest.raises(err):
-        jax.eval_shape(je.make_byte_step(cfg), je.init_shared(cfg), pb, cd,
-                       jnp.zeros((2, cfg.comp_size), jnp.uint8),
-                       jnp.zeros(2, jnp.uint8), 0, jnp.zeros(2, jnp.int32))
+    return jax.eval_shape(je.make_byte_step(cfg), je.init_shared(cfg), pb,
+                          cd, jnp.zeros((2, cfg.comp_size), jnp.uint8),
+                          jnp.zeros(2, jnp.uint8), 0,
+                          jnp.zeros(2, jnp.int32))
 
 
+# the sets the port refused until it ported the remaining gate values (the
+# test keeps its name): now accepted with the JAX package's gate record and
+# widths, or, where the JAX step cannot trace the set (VMATCH=3: one vote
+# channel against three counted inputs), a FormatError in both
 @pytest.mark.parametrize("env", [
     {"SSE2": 2}, {"VMATCH": 3}, {"MIX_TAU": -4.0}, {"MIX_BOOST_N": 16.0},
     {"W_APM_LEARN": 0}, {"APM2X": 0}, {"MATCH2": 0},
     dict(E.BENCH_GATES, APM3X=1), dict(E.BENCH_GATES, JVAL=1, JPEGX=1)],
     ids=_id)
-def test_the_rest_names_item_15b(env):
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        E.make_gates(env)
+def test_the_rest_names_item_15b(env, jax_gates):
+    jax_gates(env)
+    if env.get("VMATCH") == 3:
+        with pytest.raises(E.FormatError, match="VMATCH=3"):
+            E.make_gates(env)
+        with pytest.raises(ValueError):
+            _eval_step()
+        return
+    g = E.make_gates(env)
+    assert g.blob() == je.gates_blob()
+    assert (g.n_bank, g.n_inputs, g.n_mix1, g.m2in, g.n_l2, g.n_apm,
+            g.apm_rows) == (je.N_BANK, je.N_INPUTS, je.N_MIX1, je.M2IN,
+                            je.N_L2, je.N_APM, je.APM_ROWS)
 
 
 def test_the_runner_routes_jval_with_jpegx(monkeypatch):

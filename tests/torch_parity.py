@@ -407,7 +407,30 @@ def routed_fixture():
     return data, arc
 
 
-if __name__ == "__main__" and sys.argv[1:] == ["--write-routed-fixture"]:
+def knobs_fixture():
+    """(input bytes, the JAX package's PORT=1 archive of it under
+    ``utils/profiling.KNOBS``) for the committed knobs fixture: the gated
+    fixture's input at its small widths, one group."""
+    import chip_smoke
+    from cmix_tpu import engine as je
+    from cmix_tpu_torch.utils.profiling import KNOBS
+    with open(chip_smoke.GATED_FIXTURE, "rb") as f:
+        data = f.read()
+    with jax_runner_gates(dict(KNOBS, PORT=1)) as jr:
+        arc = jr.compress(data, je.EngineConfig(**chip_smoke.GATED_SMALL),
+                          max_batch=chip_smoke.GATED_BATCH)
+    return data, arc
+
+
+if __name__ == "__main__" and sys.argv[1:] == ["--write-knobs-fixture"]:
+    # python tests/torch_parity.py --write-knobs-fixture: (re)write the
+    # JAX package's PORT=1 archive of the gated fixture under KNOBS
+    import chip_smoke
+    data, arc = knobs_fixture()
+    with open(chip_smoke.KNOBS_ARCHIVE, "wb") as f:
+        f.write(arc)
+    print(f"{chip_smoke.KNOBS_ARCHIVE}: {len(arc)} bytes")
+elif __name__ == "__main__" and sys.argv[1:] == ["--write-routed-fixture"]:
     # python tests/torch_parity.py --write-routed-fixture: (re)write the
     # routed fixture's input (needs PIL) and the JAX package's archive of it
     import chip_smoke
