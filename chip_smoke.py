@@ -78,14 +78,25 @@ without one.  Phases, each of which raises on failure:
    re-encode, flags 3 and WRTW=1 in the gate record), then the portable
    profile at CLI widths with an empty cache, its archive held to the JAX
    package's sha256 and decoded exactly;
-12. ms per byte step as the transcoder runs it (one segment after one of
+12. the sharded transcoder (``cmix_tpu_torch.parallel``: dp x tp on
+    torch.distributed, ranks spawned as processes that share the card, each
+    running the eager byte step): the dry run on 4 Gloo ranks (dp=2, tp=2,
+    the JAX package's dry-run config, exact round trip), whose ranks then
+    code 4 lanes of 128-byte text blocks at CLI widths on the same dp=2 x
+    tp=2 mesh (one start of the ranks: PORT=1 byte-identical to the
+    unsharded card archive; the fast profile's round trip exact on the
+    mesh, within 1% of the unsharded size), then one NCCL rank (PORT=1,
+    the unsharded archive); every replica of the
+    shared state equal across ranks; each leg's ms per step, collective
+    bytes per step, seconds and ``dmc_fused`` launches;
+13. ms per byte step as the transcoder runs it (one segment after one of
     warm-up), through the captured graph and through the eager step: the
     bench speed profile at B=256 and B=1 and bench widths, and the default
     and portable profiles at B=16 and B=256, CLI widths; then through the
     graph at B=256 and CLI widths with and without the gated path's
     mechanisms, each profile, and under LEAN and KNOBS: wall, device busy,
     idle share and kernels per step (``utils/profiling.py``);
-13. the graph (``engine.make_segment_fn``: one byte step captured as a
+14. the graph (``engine.make_segment_fn``: one byte step captured as a
     CUDA graph and replayed, the default on the card, so phases 4-11 ran
     through it): the main path's archives of phases 4 and 6 (fast and
     portable, CLI widths) and the gates path's fast archives of both sets
@@ -98,16 +109,17 @@ without one.  Phases, each of which raises on failure:
     and one bench-width segment (2048 steps x 256 lanes of bench4m.raw)
     encoded and decoded through ``engine.make_transcoder`` with a Meter,
     its report printed (MB/s each way);
-14. a ``kernels:`` summary, the JSON kernel line, the card line, and last
+15. a ``kernels:`` summary, the JSON kernel line, the card line, and last
     the contract line ``{"ok": true, "device": {...}}``.
 
-Each coding path (4-11, 13) is driven with the kernels' launch counts set
-to 0 just before it and read just after; a graph's replays count the
-launches its capture recorded (the warm-up's launches, on copies of the
-state, and the capture's host calls are not counted).  The JSON line sums
-them (and gives the routed path's, the gated path's, the gates path's, of
-them at walk depths 8 and 4, the dictionary path's and its pretraining's
-sums on their own).  Every phase prints its seconds.
+Each coding path (4-12, 14) is driven with the kernels' launch counts set
+to 0 just before it and read just after (the sharded phase's ranks each
+around each of their transcodes); a graph's replays count the launches
+its capture recorded (the warm-up's launches, on copies of the state, and
+the capture's host calls are not counted).  The JSON line sums them (and
+gives the routed path's, the gated path's, the gates path's, of them at
+walk depths 8 and 4, the dictionary path's, its pretraining's and the
+sharded phase's sums on their own).  Every phase prints its seconds.
 """
 
 import hashlib
@@ -226,6 +238,12 @@ GATES_PORT_SHA256 = {
 # the resume leg: a text prefix at the main path's small widths in groups
 # of RESUME_BATCH blocks
 RESUME_KIB, RESUME_BATCH = 2, 4
+# the sharded phase: SHARD_LANES lanes of SHARD_BLOCK-byte text blocks at
+# CLI widths on the dry run's 2 x 2 mesh of ranks sharing the card under
+# Gloo (the fast profile's archive within SHARD_SIZE_TOL of the unsharded
+# one's), then one NCCL rank
+SHARD_LANES, SHARD_BLOCK = 4, 128
+SHARD_SIZE_TOL = 0.01
 # the runner CLI's widths (tbits 18, LSTM 256, horizon auto = 4 under 256
 # KiB, 16384 DMC nodes; mbits 20, ibits 16, pbits 20 and 2 LSTM layers are
 # the EngineConfig defaults)
@@ -1047,6 +1065,115 @@ def resume_leg(device):
     return windows
 
 
+def _unsharded_streams(cfg, gates, data, device):
+    """The streams of ``data`` (B, block) through the unsharded
+    transcoder (the graph) on the card."""
+    import numpy as np
+    from cmix_tpu_torch import engine as E
+    g = E.make_gates(gates)
+    b = data.shape[0]
+    _, out, lens = E.make_transcoder(cfg, g, device)(
+        E.init_shared(cfg, g, device), E.init_perblock(cfg, g, b, device),
+        data, np.zeros((b, cfg.comp_size), np.uint8), E.MODE_ENCODE)
+    return [out[i, :lens[i]].tobytes() for i in range(b)]
+
+
+def _mesh_leg(label, res):
+    """Print a run_mesh leg's numbers -> its dmc_fused launches."""
+    ranks = res["ranks"]
+    launches = 0
+    for way in ("encode", "decode"):
+        legs = [r[way] for r in ranks if way in r]
+        if not legs:
+            continue
+        launches += sum(x["launches"] for x in legs)
+        # on one rank the groups hold one rank each: nothing crosses
+        alone = " (groups of one rank)" if len(legs) == 1 else ""
+        print(f"{label} {way}: {max(x['ms_per_step'] for x in legs):.3f} ms "
+              f"a step (the slowest of {len(legs)} ranks, "
+              f"{min(x['ms_per_step'] for x in legs):.3f} the fastest); a "
+              f"rank's step all-gathers {legs[0]['gather_bytes']:.0f} B in "
+              f"{legs[0]['gathers']:.0f} calls and all-reduces "
+              f"{legs[0]['reduce_bytes']:.0f} B in {legs[0]['reduces']:.0f}"
+              f"{alone}; dmc_fused launches "
+              f"{sum(x['launches'] for x in legs)}")
+    if launches <= 0:
+        raise AssertionError(f"{label}: no dmc_fused launch on the ranks")
+    return launches
+
+
+def _replicas_agree(label, ranks):
+    """Every replicated shared leaf hashes the same on every rank, each tp
+    slice the same on every dp rank that holds it."""
+    from cmix_tpu_torch.parallel.mesh import _SH_TP
+    for r in ranks:
+        for k, d in r["digests"].items():
+            same = [q for q in ranks if k not in _SH_TP or q["tp"] == r["tp"]]
+            if any(q["digests"][k] != d for q in same):
+                raise AssertionError(f"{label}: the replicas of {k} differ")
+
+
+def sharded_phase(device):
+    """The sharded transcoder (``cmix_tpu_torch.parallel``) on the card:
+    the dry run on 4 ranks (dp=2, tp=2, Gloo), whose ranks then code
+    SHARD_LANES lanes of SHARD_BLOCK-byte text at CLI widths on the same
+    2 x 2 mesh (PORT=1 byte-identical to the unsharded card archive;
+    the fast profile round trip exact on the mesh, within SHARD_SIZE_TOL
+    of the unsharded size, the replicas equal), then PORT=1 on one NCCL
+    rank (the unsharded archive) -> the ranks' dmc_fused launches.  Ranks
+    share the card and the host, and each runs the eager step."""
+    import numpy as np
+    from cmix_tpu_torch.parallel.dryrun import Job, dryrun_multichip, run_mesh
+    dev = device.type
+    cfg = _cli_cfg(SHARD_BLOCK)
+    data = np.frombuffer(_text(4)[:SHARD_LANES * SHARD_BLOCK],
+                         np.uint8).reshape(SHARD_LANES, SHARD_BLOCK)
+    legs = (("PORT=1", {"PORT": 1}), ("fast profile", {}))
+    refs = {label: _unsharded_streams(cfg, gates, data, device)
+            for label, gates in legs}
+    t0 = time.time()
+    # the ranks start once: the dry run, then the CLI-width legs
+    res = dryrun_multichip(4, dev, jobs=[Job(data, cfg, gates, not gates)
+                                        for _, gates in legs])
+    print(f"sharded: the 2 x 2 mesh of Gloo ranks on the card took "
+          f"{time.time() - t0:.1f} s, "
+          f"{max(r['ready_s'] for r in res[0]['ranks']):.1f} s of it "
+          "from the spawn to the last rank's mesh")
+    launches = _mesh_leg("sharded: dry run (dp=2 tp=2, Gloo)", res[0])
+    print(f"sharded: {SHARD_LANES} lanes of {SHARD_BLOCK} B of "
+          f"text100k.raw, CLI widths")
+    t0 = time.time()
+    nccl = run_mesh([Job(data, cfg, {"PORT": 1}, decode=False)], 1, 1, dev)
+    print(f"sharded: the NCCL rank took {time.time() - t0:.1f} s, "
+          f"{nccl[0]['ranks'][0]['ready_s']:.1f} s of it from the spawn "
+          "to its mesh")
+    for (label, gates), r in zip(
+            legs + (("PORT=1, one NCCL rank", {"PORT": 1}),),
+            res[1:] + nccl):
+        ref, fast = refs[label.split(",")[0]], not gates
+        launches += _mesh_leg(f"sharded: {label}", r)
+        size, want = sum(map(len, r["streams"])), sum(map(len, ref))
+        if fast:
+            gap = (size - want) / want
+            if not all(q["roundtrip"] for q in r["ranks"]) \
+                    or abs(gap) > SHARD_SIZE_TOL:
+                raise AssertionError(
+                    f"sharded: {label}: round trip "
+                    f"{[q['roundtrip'] for q in r['ranks']]}, {size} B "
+                    f"against the unsharded {want} B ({gap:+.4%})")
+            what = (f"exact round trip on the mesh, {size} B against the "
+                    f"unsharded {want} B ({gap:+.4%})")
+        elif r["streams"] != ref:
+            raise AssertionError(f"sharded: {label}: the streams differ from"
+                                 " the unsharded card archive's")
+        else:
+            what = f"byte-identical to the unsharded card archive ({size} B)"
+        _replicas_agree(f"sharded: {label}", r["ranks"])
+        print(f"sharded: {label}: {what}; the replicas of every shared leaf "
+              "equal")
+    return launches
+
+
 def gated_profiles():
     """ms per graphed byte step at B=256 and CLI widths, device busy, idle
     share and kernels per step, with and without the mechanisms, in both
@@ -1428,6 +1555,7 @@ def main():
     windows += phase("resume", resume_leg, device)
     dicts, replayed = phase("dict path", dict_path, device)
     windows += dicts
+    sharded = phase("sharded", sharded_phase, device)
     phase("step times", step_times, device)
     phase("gated profiles", gated_profiles)
     windows += phase("graph", graph_phase, device, dict({
@@ -1442,7 +1570,8 @@ def main():
             "name": name, "route": "cuda",
             "source": f"cmix_tpu_torch/csrc/{name}.cu",
             "replaces": replaces[name],
-            "launches": sum(w.counts[name] for w in windows),
+            "launches": sum(w.counts[name] for w in windows)
+            + (sharded if name == "dmc_fused" else 0),
             "launches_routed": sum(w.counts[name] for w in routed),
             "launches_gated": sum(w.counts[name] for w in gated),
             "launches_gates": sum(w.counts[name] for ws in gates.values()
@@ -1453,6 +1582,8 @@ def main():
                                      for w in gates["knobs"]),
             "launches_dict": sum(w.counts[name] for w in dicts),
             "launches_pretrain": replayed if name == "dmc_fused" else 0,
+            # the sharded phase's ranks (dmc_counts is on no path)
+            "launches_sharded": sharded if name == "dmc_fused" else 0,
             "max_abs_err": max(v["err"] for v in per_level.values()),
             "ms": r["ms"], "ms_warm": r["ms_warm"],
             "host_us": r["host_us"], "plain_ms": r["plain_ms"],
@@ -1466,7 +1597,8 @@ def main():
                         f"{k['launches_gates_l8']}, at L=4 "
                         f"{k['launches_gates_l4']}, dictionary path "
                         f"{k['launches_dict']}, of them pretraining "
-                        f"{k['launches_pretrain']})" for k in kernels)
+                        f"{k['launches_pretrain']}, sharded phase "
+                        f"{k['launches_sharded']})" for k in kernels)
     print(f"kernels: {summary} over the coding paths; both exact at L=1..8 "
           f"on the real-flow states and {len(EDGE_CASES)} edge-case sets "
           f"(max_abs_err 0); times at L=8, B=256 (device, tables cold); "

@@ -6,10 +6,13 @@ Each ``csrc/<name>.cu`` is compiled at first use with
 the hash covers the ``.cu`` and every ``csrc/*.cuh`` it may include, so an
 edited source or header is rebuilt and an unchanged one is reused.  Nothing is
 compiled when a module is imported: the CPU tests import every module, and
-a machine without a GPU may have no ``nvcc``.
+a machine without a GPU may have no ``nvcc``.  Processes that build one
+source at once (the ranks of a sharded run) take turns on a file lock
+beside its library: the first builds, the others load its build.
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -46,11 +49,20 @@ def lib_path(name):
 
 def compile_source(name, verbose=False):
     """Compile ``csrc/<name>.cu`` unless its build is current; returns
-    (path, nvcc output).  Safe to run for several sources at once."""
+    (path, nvcc output).  Safe to run for several sources at once, and
+    from several processes (one builds while the others wait)."""
     out = lib_path(name)
     if os.path.exists(out):
         return out, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(out + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(out):
+            return out, ""
+        return out, _nvcc_build(name, out, verbose)
+
+
+def _nvcc_build(name, out, verbose):
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared",
            "-Xcompiler", "-fPIC", "-o", tmp,
@@ -61,7 +73,7 @@ def compile_source(name, verbose=False):
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
     os.replace(tmp, out)
-    return out, res.stdout + res.stderr
+    return res.stdout + res.stderr
 
 
 def load(name):

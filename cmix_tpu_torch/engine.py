@@ -958,12 +958,26 @@ def _winner_pos(flat):
     return win
 
 
-def _set_rows(tbl2d, flat_idx, vals):
+def _set_rows(tbl2d, flat_idx, vals, comm=None, key=None):
     """``tbl2d[flat_idx] = vals`` with duplicates resolved by
-    ``_winner_pos`` (every duplicate writes the winner's row)."""
+    ``_winner_pos`` (every duplicate writes the winner's row).  With a
+    sharded step's ``comm`` (``parallel/mesh.py``) ``tbl2d`` is this rank's
+    slice of the table ``key`` and only its rows are written."""
     f = flat_idx.reshape(-1)
     v = vals.reshape((f.numel(),) + tuple(tbl2d.shape[1:]))
-    tbl2d[f] = v[_winner_pos(f)]
+    if comm is None:
+        tbl2d[f] = v[_winner_pos(f)]
+    else:
+        comm.set_rows(key, tbl2d, f, v[_winner_pos(f)])
+
+
+def _rows(sh, key, idx, lead=None, comm=None):
+    """``sh[key][lead, idx]`` (``sh[key][idx]`` without ``lead``): rows of
+    one of the tables a sharded step splits over tp, read through its
+    ``comm`` there."""
+    if comm is not None:
+        return comm.rows(key, sh[key], idx, lead)
+    return sh[key][idx] if lead is None else sh[key][lead, idx]
 
 
 def _set_rows_where(tbl2d, idx, vals, ok):
@@ -991,18 +1005,19 @@ def _scatter_add(n, idx, vals):
                        device=v.device).index_add_(0, f, v)
 
 
-def _bank_gather(sh, rowi):
+def _bank_gather(sh, rowi, comm=None):
     """``bank[m, rowi[:, m]]`` -> (B, N_BANK, 256) int32 rows (slot 0 is
     the row header: checksum and run channel)."""
     m = torch.arange(rowi.shape[1], device=rowi.device)[None, :]
-    return sh["bank"][m, rowi]
+    return _rows(sh, "bank", rowi, m, comm)
 
 
-def _bank_scatter(sh, cfg, rowi, newrows):
+def _bank_scatter(sh, cfg, rowi, newrows, comm=None):
     """Row writes back into the bank; a row hit by several blocks takes
     the highest block's row (``_set_rows``)."""
     m = torch.arange(rowi.shape[1], device=rowi.device)[None, :]
-    _set_rows(sh["bank"].view(-1, 256), m * cfg.rows + rowi, newrows)
+    _set_rows(sh["bank"].view(-1, 256), m * cfg.rows + rowi, newrows, comm,
+              "bank")
 
 
 def _dyn3_gates(cs, pb, exp_byte, pdst, ptot):
@@ -1412,9 +1427,11 @@ def _ppm_blend_int(sh, ppm_rows, C, p_idx, excl):
     return _st256(p12)[:, None, :], pcnt, ptot, pdst, see_d, see_t, see_p
 
 
-def _predict_tree_b(cfg, g, C, sh, pb, t):
+def _predict_tree_b(cfg, g, C, sh, pb, t, comm=None):
     """Predictions for all 256 tree nodes of the current byte, batched.
-    Returns (p_tree f32 (B, 256), aux dict threaded to _update_tree_b)."""
+    Returns (p_tree f32 (B, 256), aux dict threaded to _update_tree_b).
+    A sharded step's ``comm`` reads the tp tables and holds every lane's
+    history (match cursors point into any block)."""
     cs = pb["ctx"]
     node, level = C.node, C.level
     dev = node.device
@@ -1435,8 +1452,8 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
     ck_exp = bases & 0xFF if g.bank_ck else None
     if g.bank_ck == 2:
         alt = rowi ^ 1
-        rows_a = _bank_gather(sh, rowi)                      # (B, NB, 256)
-        rows_b = _bank_gather(sh, alt)
+        rows_a = _bank_gather(sh, rowi, comm)                # (B, NB, 256)
+        rows_b = _bank_gather(sh, alt, comm)
         ok_a = (rows_a[:, :, 0] >> 16).long() == ck_exp
         ok_b = (rows_b[:, :, 0] >> 16).long() == ck_exp
         mat_a = rows_a[:, :, 1] & 0x3F
@@ -1447,7 +1464,7 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
         hdr = rows[:, :, 0].long()
         rows = torch.where((ok_a | ok_b)[:, :, None], rows, SLOT_INIT)
     else:
-        rows = _bank_gather(sh, rowi)
+        rows = _bank_gather(sh, rowi, comm)
         hdr = rows[:, :, 0].long()
         if g.bank_ck:
             rows = torch.where(((hdr >> 16) == ck_exp)[:, :, None], rows,
@@ -1464,18 +1481,19 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
     st_d0 = st_of(sh["d0_p"])[None].expand(B, 256)
     b2 = cs["last4"] & 0xFFFF
     d12_idx = torch.stack([b1, 256 + b2, D12_BRK + brctx], dim=1)
-    d12rows = sh["d12"][d12_idx]                             # (B, 3, 256)
+    d12rows = _rows(sh, "d12", d12_idx, comm=comm)           # (B, 3, 256)
     if port:
         st_d12 = _packed_st256(d12rows, 18)
     else:
         st_d12 = ((d12rows >> 18).float() - 4096.0) * (1.0 / 256.0)
 
     # ---- match models (cursors may point into any block's history)
-    hist = pb["hist"]
+    hist, nlanes = (pb["hist"], B) if comm is None else (comm.hist,
+                                                         comm.n_lanes)
     lvl = level[None, None, :]
 
     def _match(blk, pos, mlen, conf_tbl):
-        blk = torch.where(blk < 0, blk + B, blk)             # JAX wraps
+        blk = torch.where(blk < 0, blk + nlanes, blk)        # JAX wraps
         exp_byte = hist[blk, torch.clamp(pos, 0, cfg.block_size - 1)].long()
         lenb = torch.clamp(mlen, max=31)
         conf = _take_cols(conf_tbl, lenb)
@@ -1520,7 +1538,7 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
     pbase = mix32(torch.stack(pcols, dim=1), C.psalt[None, :])
     prowi = (pbase >> 8) & (cfg.prows - 1)
     p_ar = torch.arange(g.n_ppm, device=dev)
-    ppm_w = sh["ppm"][p_ar[None, :], prowi]                  # (B, NP, 64)
+    ppm_w = _rows(sh, "ppm", prowi, p_ar[None, :], comm)     # (B, NP, 64)
     ppm_rows = torch.stack([(ppm_w >> (8 * j)) & 0xFF for j in range(4)],
                            dim=-1).reshape(B, g.n_ppm, 256)
     pck_exp = None
@@ -1536,7 +1554,7 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
     srowi = (mix32(bases[:, C.scols], C.ssalt[None, :]) >> 8) \
         & (cfg.rows - 1)
     s_ar = torch.arange(g.n_sbank, device=dev)
-    srows = sh["sbank"][s_ar[None, :], srowi]                # (B, NS, 256)
+    srows = _rows(sh, "sbank", srowi, s_ar[None, :], comm)   # (B, NS, 256)
     if port:
         st_sbank = _packed_st256(srows, 8)
     else:
@@ -1561,7 +1579,8 @@ def _predict_tree_b(cfg, g, C, sh, pb, t):
     lms, lm = None, []
     if g.lms:
         rl = rec_rl[:, None] * C.lms_k[None, :]
-        xs = torch.gather(hist, 1, torch.remainder(t - rl, cfg.block_size)
+        xs = torch.gather(pb["hist"], 1, torch.remainder(t - rl,
+                                                         cfg.block_size)
                           ).float()
         xs_f = (xs - 128.0) * (1.0 / 128.0)
         predf = torch.clamp((pb["lms_w"] * xs_f).sum(dim=1), -1.0, 1.0)
@@ -1834,11 +1853,13 @@ def _slot_update_int(slots, target_i, cap):
     return (stretch13_lut(newp) << 18) | (newp << 6) | newc
 
 
-def _update_tree_b(cfg, g, C, sh, pb, aux, byte, t):
+def _update_tree_b(cfg, g, C, sh, aux, byte, t, comm=None):
     """Adapt every model along each block's 8-node tree path (MIX_NORM,
     STAT_NORM, count-normalized final blend; integer twins under PORT).
     t: the byte index, a 0-d device tensor (MIX_TAU's rate decays with
-    it, computed on the device)."""
+    it, computed on the device).  A sharded step passes every lane's aux
+    and byte and its ``comm``, which writes this rank's rows of the tp
+    tables."""
     lr = g.mix_lr
     if g.mix_tau:
         lr = g.mix_lr * torch.rsqrt(1.0 + t.float() / g.mix_tau)
@@ -1878,7 +1899,7 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte, t):
     if g.runx or g.bank_ck:
         ck16 = aux["ck_exp"] if g.bank_ck else hdr_old >> 16
         newrows[:, :, 0] = ((ck16 << 16) | run16).to(torch.int32)
-    _bank_scatter(sh, cfg, aux["rowi"], newrows)
+    _bank_scatter(sh, cfg, aux["rowi"], newrows, comm)
 
     # ---- d0: aggregated dense update (STAT_NORM mean)
     # (STAT_NORM: the shared statistics move by the mean of the blocks'
@@ -1913,7 +1934,7 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte, t):
         _slot_update_int(aux["d12rows"], target_i[:, None, :], cap) if port
         else _slot_update(aux["d12rows"], target[:, None, :], cap),
         aux["d12rows"])
-    _set_rows(sh["d12"], aux["d12_idx"], newd)
+    _set_rows(sh["d12"], aux["d12_idx"], newd, comm, "d12")
 
     # ---- PPM counts (update exclusion PPM_UPD, halve-on-overflow)
     ppm_rows = aux["ppm_rows"]
@@ -1937,7 +1958,7 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte, t):
                          | (pw[..., 3] << 24))
     p_ar = torch.arange(g.n_ppm, device=dev)[None, :]
     pflat = p_ar * cfg.prows + aux["prowi"]
-    _set_rows(sh["ppm"].view(-1, 64), pflat, prow_new_w)
+    _set_rows(sh["ppm"].view(-1, 64), pflat, prow_new_w, comm, "ppm")
     if g.ppm_ck:
         _set_rows(sh["ppm_ck"].view(-1, 1), pflat, aux["pck_exp"][..., None])
 
@@ -2020,7 +2041,7 @@ def _update_tree_b(cfg, g, C, sh, pb, aux, byte, t):
     new_srows = srows.scatter(2, n8[:, None, :].expand(B, NS, 8), packed)
     _set_rows(sh["sbank"].view(-1, 256),
               torch.arange(NS, device=dev)[None, :] * cfg.rows
-              + aux["srowi"], new_srows)
+              + aux["srowi"], new_srows, comm, "sbank")
 
     # ---- match / run confidences: dense one-hot aggregation
     def _mc_update(key, exp_bit, alive_m, conf, lenb):
@@ -2299,13 +2320,20 @@ def _update_mixers_int(g, C, sh, aux, target_i, onp_i, n8, t8_i):
     return sh
 
 
-def _aux_writes_b(cfg, g, sh, pb, byte, t, ind_key_prev, ind_prev_val):
+def _aux_writes_b(cfg, g, sh, pb, byte, t, ind_key_prev, ind_prev_val,
+                  comm=None):
     """Match-cursor repositioning + match/indirect table writes, one
-    scatter on the shared aux arena."""
+    scatter on the shared aux arena.  In a sharded step (``comm``) the
+    lanes are the rank's, numbered from ``comm.lane0``: the arena's
+    writes are every lane's, and cursors read every lane's history."""
     cs = pb["ctx"]
     B = byte.shape[0]
     dev = byte.device
     bar = torch.arange(B, device=dev)
+    hist, nlanes = pb["hist"], B
+    if comm is not None:
+        bar = bar + comm.lane0
+        hist, nlanes = comm.hist, comm.n_lanes
     keys = []
     for o in g.match_orders:
         if o == 100:
@@ -2324,7 +2352,7 @@ def _aux_writes_b(cfg, g, sh, pb, byte, t, ind_key_prev, ind_prev_val):
     moff = torch.arange(g.n_match, device=dev) * (ms << cfg.mbits)
     midx = moff[None, :] + ms * h                            # (B, NM)
     aux_tbl = sh["aux_tbl"]
-    cand = aux_tbl[midx].long()                              # int32 view
+    cand = _rows(sh, "aux_tbl", midx, comm=comm).long()      # int32 view
     ins = ((bar[:, None] << POS_BITS) | (t + 1)).expand(B, g.n_match)
     ind_base = ms * g.n_match * (1 << cfg.mbits)
     ind_off = ind_base + torch.arange(g.n_ind, device=dev) * (1 << cfg.ibits)
@@ -2332,20 +2360,20 @@ def _aux_writes_b(cfg, g, sh, pb, byte, t, ind_key_prev, ind_prev_val):
     ind_idx = ind_off[None, :] + ind_key_prev
     if g.match2:
         # the recency shift: slot 1 takes the old latest, slot 0 the new
-        cand2 = aux_tbl[midx + 1].long()
+        cand2 = _rows(sh, "aux_tbl", midx + 1, comm=comm).long()
         widx = torch.cat([midx, midx + 1, ind_idx], 1)
         wval = torch.cat([to_bits(ins), cand.to(torch.int32),
                           to_bits(newv)], 1)
     else:
         widx = torch.cat([midx, ind_idx], 1)
         wval = torch.cat([to_bits(ins), to_bits(newv)], 1)
-    _set_rows(aux_tbl.view(-1, 1), widx, wval[..., None])
-
-    hist = pb["hist"]
+    if comm is not None:
+        widx, wval = comm.lanes((widx, wval))
+    _set_rows(aux_tbl.view(-1, 1), widx, wval[..., None], comm, "aux_tbl")
 
     def _advance(blk_k, pos_k, len_k, c):
         blk = pb[blk_k]
-        pred = hist[torch.where(blk < 0, blk + B, blk),
+        pred = hist[torch.where(blk < 0, blk + nlanes, blk),
                     torch.clamp(pb[pos_k], 0, cfg.block_size - 1)].long()
         ok = (pb[len_k] > 0) & (pred == byte[:, None])
         c_pos = c & ((1 << POS_BITS) - 1)
@@ -2362,15 +2390,27 @@ def _aux_writes_b(cfg, g, sh, pb, byte, t, ind_key_prev, ind_prev_val):
 
 # ---------------------------------------------------------------- byte step
 
+# the aux entries a sharded step does not all-gather: the shared layer-1
+# rows (not per lane) and the DMC walk (the rank's own plan step reads it)
+_AUX_NOT_LANES = ("w_const", "w_level", "dmc_walk")
 
-def make_byte_step(cfg: EngineConfig, g: Gates, device):
+
+def make_byte_step(cfg: EngineConfig, g: Gates, device, comm=None):
     """-> byte_step(sh, pb, cd, comp, inp_byte_b, t, mode) returning
     (sh, pb, cd, e32 (B, 8), c32 (B,)).  State dicts are updated in
     place where that saves a copy (some leaves in place, others rebound to
     new tensors).  t is the byte index in the block, a 0-d int64 tensor on
     ``device`` (0 <= t < block_size): nothing in the step reads a value
     back to the host, so a CUDA graph can capture it
-    (``make_segment_fn``)."""
+    (``make_segment_fn``).
+
+    ``comm`` (``parallel/mesh.py``) makes it one rank's step of a dp x tp
+    mesh: the lanes are the rank's, the tp tables its slices.  It predicts
+    and codes its lanes; the shared updates (``_update_tree_b`` and the
+    LSTM's) run on every lane's all-gathered inputs, so each replica gets
+    the unsharded step's update; the arena's writes are all-gathered too.
+    Without ``comm`` the step is the unsharded one, operator for
+    operator."""
     C = _Consts(g, device)
     imask = (1 << cfg.ibits) - 1
     lcfg = _lstm_cfg(cfg, g)
@@ -2393,10 +2433,10 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device):
     def byte_step(sh, pb, cd, comp, inp_byte_b, t, mode):
         B = inp_byte_b.shape[0]
         ind_key_prev = ind_keys(pb["ctx"])
-        ind_prev_val = sh["aux_tbl"][ind_off[None, :] + ind_key_prev
-                                     ].long() & M32
+        ind_prev_val = _rows(sh, "aux_tbl", ind_off[None, :] + ind_key_prev,
+                             comm=comm).long() & M32
 
-        p_tree, aux = _predict_tree_b(cfg, g, C, sh, pb, t)
+        p_tree, aux = _predict_tree_b(cfg, g, C, sh, pb, t, comm)
         if g.port:
             p16_tree = p_tree.long()         # already p16, clipped
         else:
@@ -2419,13 +2459,24 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device):
             byte_acc = byte_acc * 2 + bit
         byte = byte_acc & 255
 
-        sh = _update_tree_b(cfg, g, C, sh, pb, aux, byte, t)
+        if comm is None:
+            sh = _update_tree_b(cfg, g, C, sh, aux, byte, t)
+        else:
+            lanes, byte_all, lstm_all = comm.lanes((
+                {k: v for k, v in aux.items() if k not in _AUX_NOT_LANES},
+                byte, pb.get("lstm")))
+            sh = _update_tree_b(cfg, g, C, sh, dict(
+                lanes, w_const=aux["w_const"], w_level=aux["w_level"]),
+                byte_all, t, comm)
         lms = aux["lms"]
         if lms is not None:                  # the block's own taps
             lerr = (byte.float() - 128.0) * (1.0 / 128.0) - lms["pred"]
             pb["lms_w"] = pb["lms_w"] + LMS_MU * lerr[:, None] * lms["xs"]
             pb["lms_err"] = 0.98 * pb["lms_err"] + 0.02 * lerr.abs()
         pb["hist"].index_copy_(1, t.view(1), byte.to(torch.uint8)[:, None])
+        if comm is not None:
+            comm.hist.index_copy_(1, t.view(1),
+                                  byte_all.to(torch.uint8)[:, None])
         if g.ppm_deep:
             A = 0x01000193
             for key, w in (("h32", 32), ("h48", 48)):
@@ -2459,12 +2510,16 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device):
             (sh["wrtw_word"], sh["wrtw_stem"]) if g.wrtw >= 2 else None)
         pb["x86"] = x86_update(pb["x86"], byte)
         sh, pb = _aux_writes_b(cfg, g, sh, pb, byte, t, ind_key_prev,
-                               ind_prev_val)
-        pb["ind_val"] = sh["aux_tbl"][ind_off[None, :] + ind_keys(pb["ctx"])
-                                      ].long() & M32
-        if cfg.lstm_hidden:
+                               ind_prev_val, comm)
+        pb["ind_val"] = _rows(sh, "aux_tbl", ind_off[None, :]
+                              + ind_keys(pb["ctx"]), comm=comm).long() & M32
+        if cfg.lstm_hidden and comm is None:
             sh["lstm"], pb["lstm"] = lstm_update(lcfg, sh["lstm"],
                                                  pb["lstm"], byte)
+        elif cfg.lstm_hidden:
+            sh["lstm"], lstm_all = lstm_update(lcfg, sh["lstm"], lstm_all,
+                                               byte_all)
+            pb["lstm"] = comm.own_lanes(lstm_all)
         return sh, pb, cd, torch.stack(emits, dim=1), c32
 
     return byte_step
@@ -2549,15 +2604,16 @@ class _Segments:
     ``torch.cuda.CUDAGraph`` and replayed seg_size times per segment; a
     later group of the same width copies its state into the buffers.
     Elsewhere, or with ``graph=False``, the eager step runs in a Python
-    loop with a device t."""
+    loop with a device t (a sharded rank's step, with its ``comm``)."""
 
-    def __init__(self, cfg: EngineConfig, g: Gates, device, graph):
+    def __init__(self, cfg: EngineConfig, g: Gates, device, graph,
+                 comm=None):
         self.cfg, self.device = cfg, device
         self.graph = graph and device.type == "cuda"
         if self.graph:
             self.body = make_static_step(cfg, g, device)
         else:
-            self.step = make_byte_step(cfg, g, device)
+            self.step = make_byte_step(cfg, g, device, comm)
             self.ts = torch.arange(cfg.block_size, device=device)
         self.st = self._g = None
         self.per_replay = None          # kernel launches one replay makes
@@ -2662,7 +2718,8 @@ class _Segments:
         return self.st["sh"], self.st["pb"], self.st["cd"]
 
 
-def make_segment_fn(cfg: EngineConfig, g: Gates, device, graph=True):
+def make_segment_fn(cfg: EngineConfig, g: Gates, device, graph=True,
+                    comm=None):
     """The port's ``jax.jit`` of the JAX package's segment scan: an object
     whose ``start(sh, pb, cd, comp, mode)`` begins a coding group and whose
     ``run(inp_seg)`` enqueues one segment of seg_size byte steps on its
@@ -2670,8 +2727,10 @@ def make_segment_fn(cfg: EngineConfig, g: Gates, device, graph=True):
     (S, B)).  On CUDA one byte step is captured as a CUDA graph and
     replayed (a failed capture raises: there is no fallback); the eager
     step runs there only when asked (``graph=False``), and always on the
-    CPU."""
-    return _Segments(cfg, g, device, graph)
+    CPU; ``comm`` makes it a sharded rank's (``make_byte_step``), eager."""
+    if comm is not None and graph:
+        raise ValueError("a sharded step runs eagerly (graph=False)")
+    return _Segments(cfg, g, device, graph, comm)
 
 
 def make_seg_compactor(cfg: EngineConfig):
@@ -2703,7 +2762,8 @@ def make_seg_compactor(cfg: EngineConfig):
 # --------------------------------------------------------------- transcoder
 
 
-def make_transcoder(cfg: EngineConfig, g: Gates, device, graph=True):
+def make_transcoder(cfg: EngineConfig, g: Gates, device, graph=True,
+                    comm=None):
     """``transcode(sh, pb, inp, comp, mode, meter=None, progress=None)
     -> (hist, out, out_len)`` as numpy arrays.
 
@@ -2721,7 +2781,8 @@ def make_transcoder(cfg: EngineConfig, g: Gates, device, graph=True):
     ``utils.profiling.Meter`` (phases ``compile``: the graph's warm-up
     and capture, at the first group of a width; ``device``: the segments,
     a later group's copy into the graph, and the waits on the device;
-    ``host``: the compaction); progress: a callable of the bytes done."""
+    ``host``: the compaction); progress: a callable of the bytes done.
+    ``comm``: a sharded rank's (``parallel/mesh.py``; eager, its lanes)."""
     compact = make_seg_compactor(cfg)
     segs = {}
     S = cfg.seg_size
@@ -2756,7 +2817,7 @@ def make_transcoder(cfg: EngineConfig, g: Gates, device, graph=True):
             inp_T = torch.as_tensor(np.ascontiguousarray(
                 np.asarray(inp).T), device=device)
             if b not in segs:
-                segs[b] = make_segment_fn(cfg, g, device, graph)
+                segs[b] = make_segment_fn(cfg, g, device, graph, comm)
             seg = segs[b]
             host = [tuple(torch.empty(shape, dtype=torch.int64,
                                       pin_memory=True)

@@ -262,3 +262,19 @@ def test_profiler_counts_each_kernel_once(gpu):
     assert rows[0]["kernel_launches_per_step"] == 1.0      # cudaGraphLaunch
     assert rows[0]["dmc_kernels"]["dmc_fused_kernel"][
         "launches_per_step"] == 1.0
+
+
+def test_sharded_ranks_on_the_card_equal_unsharded(gpu):
+    """Two ranks sharing the card under Gloo (mesh dp=1 x tp=2): the PORT=1
+    streams are the unsharded card archive's, through the DMC kernel."""
+    from cmix_tpu_torch.parallel.dryrun import Job, run_mesh
+    cfg = E.EngineConfig(block_size=64, seg_size=64, tbits=12, mbits=12,
+                         ibits=10, pbits=12, lstm_hidden=32,
+                         lstm_horizon=4, dmc_nodes=4096)
+    with open("testdata/text100k.raw", "rb") as f:
+        data = np.frombuffer(f.read()[:256], np.uint8).reshape(4, 64)
+    res = run_mesh([Job(data, cfg, {"PORT": 1}, decode=False)], 1, 2,
+                   "cuda", timeout=300)[0]
+    assert res["streams"] == chip_smoke._unsharded_streams(
+        cfg, {"PORT": 1}, data, gpu)
+    assert [r["encode"]["launches"] for r in res["ranks"]] == [64, 64]

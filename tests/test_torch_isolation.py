@@ -24,7 +24,12 @@ def test_every_module_imports_with_jax_and_cmix_tpu_blocked():
     assert {"cmix_tpu_torch.engine", "cmix_tpu_torch.mixer.ilstm",
             "cmix_tpu_torch.utils.intmath", "cmix_tpu_torch.utils.checkpoint",
             "cmix_tpu_torch.preprocess.jpeg",
-            "cmix_tpu_torch.utils.profiling"} <= set(mods) and len(mods) > 15
+            "cmix_tpu_torch.utils.profiling",
+            "cmix_tpu_torch.parallel.distributed",
+            "cmix_tpu_torch.parallel.mesh", "cmix_tpu_torch.parallel.dryrun",
+            "cmix_tpu_torch.preprocess.enwik9",
+            "cmix_tpu_torch.tools.make_dict",
+            "cmix_tpu_torch.tools.core_words"} <= set(mods) and len(mods) > 15
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'jax.numpy', 'cmix_tpu'):\n"
@@ -53,7 +58,10 @@ def test_no_jax_or_cmix_tpu_import_in_sources():
     for name in ("csrc/dmc_counts.cu", "csrc/dmc_walk.cuh", "mixer/ilstm.py",
                  "utils/intmath.py", "convert.py", "preprocess/jpeg.py",
                  "preprocess/media.py", "preprocess/wrt.py",
-                 "utils/checkpoint.py", "utils/profiling.py"):
+                 "utils/checkpoint.py", "utils/profiling.py",
+                 "parallel/distributed.py", "parallel/mesh.py",
+                 "parallel/dryrun.py", "preprocess/enwik9.py",
+                 "tools/make_dict.py", "tools/core_words.py"):
         assert os.path.join(ROOT, "cmix_tpu_torch", name) in files
     hits = []
     for path in files:

@@ -54,7 +54,7 @@ def _replayed_by_jax(cfg, data, monkeypatch):
 def _replayed_by_port(cfg, data, monkeypatch):
     seen = []
 
-    def make_byte_step(pcfg, g, device):
+    def make_byte_step(pcfg, g, device, comm=None):
         def step(sh, pb, cd, comp, inp_b, t, mode):
             seen.append((int(inp_b[0]), t))
             return sh, pb, cd, None, None
