@@ -241,7 +241,7 @@ RESUME_KIB, RESUME_BATCH = 2, 4
 # the sharded phase: SHARD_LANES lanes of SHARD_BLOCK-byte text blocks at
 # CLI widths on the dry run's 2 x 2 mesh of ranks sharing the card under
 # Gloo (the fast profile's archive within SHARD_SIZE_TOL of the unsharded
-# one's), then one NCCL rank
+# one's), then one NCCL rank through the graph
 SHARD_LANES, SHARD_BLOCK = 4, 128
 SHARD_SIZE_TOL = 0.01
 # the runner CLI's widths (tbits 18, LSTM 256, horizon auto = 4 under 256
@@ -1091,7 +1091,8 @@ def _mesh_leg(label, res):
         alone = " (groups of one rank)" if len(legs) == 1 else ""
         print(f"{label} {way}: {max(x['ms_per_step'] for x in legs):.3f} ms "
               f"a step (the slowest of {len(legs)} ranks, "
-              f"{min(x['ms_per_step'] for x in legs):.3f} the fastest); a "
+              f"{min(x['ms_per_step'] for x in legs):.3f} the fastest; "
+              f"capture {max(x['compile_s'] for x in legs):.3f} s); a "
               f"rank's step all-gathers {legs[0]['gather_bytes']:.0f} B in "
               f"{legs[0]['gathers']:.0f} calls and all-reduces "
               f"{legs[0]['reduce_bytes']:.0f} B in {legs[0]['reduces']:.0f}"
@@ -1103,38 +1104,51 @@ def _mesh_leg(label, res):
 
 
 def _replicas_agree(label, ranks):
-    """Every replicated shared leaf hashes the same on every rank, each tp
-    slice the same on every dp rank that holds it."""
+    """After the encode and after the decode (the transcoder's state after
+    coding), every replicated shared leaf hashes the same on every rank,
+    each tp slice the same on every dp rank that holds it; a decode, which
+    replays the encode's updates, ends in the encode's state."""
     from cmix_tpu_torch.parallel.mesh import _SH_TP
-    for r in ranks:
-        for k, d in r["digests"].items():
-            same = [q for q in ranks if k not in _SH_TP or q["tp"] == r["tp"]]
-            if any(q["digests"][k] != d for q in same):
-                raise AssertionError(f"{label}: the replicas of {k} differ")
+    for way in ("encode", "decode"):
+        digs = [(r, r["digests"] if way == "encode" else r[way]["digests"])
+                for r in ranks if way == "encode" or way in r]
+        for r, dg in digs:
+            for k, d in dg.items():
+                if any(e[k] != d for q, e in digs
+                       if k not in _SH_TP or q["tp"] == r["tp"]):
+                    raise AssertionError(f"{label}: the replicas of {k} "
+                                         f"differ after the {way}")
+            if way == "decode" and dg != r["digests"]:
+                raise AssertionError(f"{label}: rank {r['rank']}'s state "
+                                     "after the decode is not the encode's")
 
 
 def sharded_phase(device):
     """The sharded transcoder (``cmix_tpu_torch.parallel``) on the card:
     the dry run on 4 ranks (dp=2, tp=2, Gloo), whose ranks then code
     SHARD_LANES lanes of SHARD_BLOCK-byte text at CLI widths on the same
-    2 x 2 mesh (PORT=1 byte-identical to the unsharded card archive;
-    the fast profile round trip exact on the mesh, within SHARD_SIZE_TOL
-    of the unsharded size, the replicas equal), then PORT=1 on one NCCL
-    rank (the unsharded archive) -> the ranks' dmc_fused launches.  Ranks
-    share the card and the host, and each runs the eager step."""
+    2 x 2 mesh, eagerly (Gloo's collectives cannot be captured): PORT=1
+    byte-identical to the unsharded card archive; the fast profile round
+    trip exact on the mesh, within SHARD_SIZE_TOL of the unsharded size;
+    the replicas equal after each direction.  Then one NCCL rank, whose
+    step and collectives replay as a CUDA graph: PORT=1 (the unsharded
+    card archive) and the fast profile (the unsharded graph's streams,
+    byte for byte, and an exact round trip), and PORT=1 eagerly, the
+    graph's yardstick -> the ranks' dmc_fused launches.  Ranks share the
+    card and the host."""
     import numpy as np
     from cmix_tpu_torch.parallel.dryrun import Job, dryrun_multichip, run_mesh
     dev = device.type
     cfg = _cli_cfg(SHARD_BLOCK)
     data = np.frombuffer(_text(4)[:SHARD_LANES * SHARD_BLOCK],
                          np.uint8).reshape(SHARD_LANES, SHARD_BLOCK)
-    legs = (("PORT=1", {"PORT": 1}), ("fast profile", {}))
-    refs = {label: _unsharded_streams(cfg, gates, data, device)
-            for label, gates in legs}
+    port, fast = {"PORT": 1}, {}
+    refs = {"PORT=1": _unsharded_streams(cfg, port, data, device),
+            "fast": _unsharded_streams(cfg, fast, data, device)}
     t0 = time.time()
     # the ranks start once: the dry run, then the CLI-width legs
-    res = dryrun_multichip(4, dev, jobs=[Job(data, cfg, gates, not gates)
-                                        for _, gates in legs])
+    res = dryrun_multichip(4, dev, jobs=[Job(data, cfg, port, False),
+                                        Job(data, cfg, fast)])
     print(f"sharded: the 2 x 2 mesh of Gloo ranks on the card took "
           f"{time.time() - t0:.1f} s, "
           f"{max(r['ready_s'] for r in res[0]['ranks']):.1f} s of it "
@@ -1143,34 +1157,49 @@ def sharded_phase(device):
     print(f"sharded: {SHARD_LANES} lanes of {SHARD_BLOCK} B of "
           f"text100k.raw, CLI widths")
     t0 = time.time()
-    nccl = run_mesh([Job(data, cfg, {"PORT": 1}, decode=False)], 1, 1, dev)
+    nccl = run_mesh([Job(data, cfg, port, False), Job(data, cfg, fast),
+                     Job(data, cfg, port, False, graph=False)], 1, 1, dev)
     print(f"sharded: the NCCL rank took {time.time() - t0:.1f} s, "
           f"{nccl[0]['ranks'][0]['ready_s']:.1f} s of it from the spawn "
           "to its mesh")
-    for (label, gates), r in zip(
-            legs + (("PORT=1, one NCCL rank", {"PORT": 1}),),
-            res[1:] + nccl):
-        ref, fast = refs[label.split(",")[0]], not gates
+    # (label, result, the graph expected, reference, streams must equal it)
+    legs = (("PORT=1, 2 x 2 Gloo", res[1], False, "PORT=1", True),
+            ("fast profile, 2 x 2 Gloo", res[2], False, "fast", False),
+            ("PORT=1, one NCCL rank", nccl[0], True, "PORT=1", True),
+            ("fast profile, one NCCL rank", nccl[1], True, "fast", True),
+            ("PORT=1, one NCCL rank", nccl[2], False, "PORT=1", True))
+    for label, r, graph, ref_key, exact in legs:
+        label += ", graph" if graph else ", eager"
+        ran = {q["graph"] for q in r["ranks"]}
+        if ran != {graph}:
+            raise AssertionError(f"sharded: {label}: the ranks ran the "
+                                 f"graph {sorted(ran)}")
         launches += _mesh_leg(f"sharded: {label}", r)
+        ref = refs[ref_key]
         size, want = sum(map(len, r["streams"])), sum(map(len, ref))
-        if fast:
-            gap = (size - want) / want
-            if not all(q["roundtrip"] for q in r["ranks"]) \
-                    or abs(gap) > SHARD_SIZE_TOL:
-                raise AssertionError(
-                    f"sharded: {label}: round trip "
-                    f"{[q['roundtrip'] for q in r['ranks']]}, {size} B "
-                    f"against the unsharded {want} B ({gap:+.4%})")
-            what = (f"exact round trip on the mesh, {size} B against the "
-                    f"unsharded {want} B ({gap:+.4%})")
-        elif r["streams"] != ref:
-            raise AssertionError(f"sharded: {label}: the streams differ from"
-                                 " the unsharded card archive's")
-        else:
-            what = f"byte-identical to the unsharded card archive ({size} B)"
+        trips = [q["roundtrip"] for q in r["ranks"] if "roundtrip" in q]
+        if not all(trips):
+            raise AssertionError(f"sharded: {label}: round trip {trips}")
+        trip = "; exact round trip" if trips else ""
+        if exact and r["streams"] != ref:
+            raise AssertionError(
+                f"sharded: {label}: the streams ({size} B) differ from the "
+                f"unsharded card archive's ({want} B)")
+        gap = (size - want) / want
+        if abs(gap) > SHARD_SIZE_TOL:
+            raise AssertionError(f"sharded: {label}: {size} B against the "
+                                 f"unsharded {want} B ({gap:+.4%})")
+        what = (f"byte-identical to the unsharded card archive ({size} B)"
+                if exact else f"{size} B against the unsharded {want} B "
+                f"({gap:+.4%})")
         _replicas_agree(f"sharded: {label}", r["ranks"])
-        print(f"sharded: {label}: {what}; the replicas of every shared leaf "
-              "equal")
+        print(f"sharded: {label}: {what}{trip}; the replicas of every "
+              "shared leaf equal")
+    g_ms = nccl[0]["ranks"][0]["encode"]["ms_per_step"]
+    e_ms = nccl[2]["ranks"][0]["encode"]["ms_per_step"]
+    print(f"sharded: one NCCL rank, PORT=1, CLI widths, {SHARD_LANES} lanes:"
+          f" {g_ms:.3f} ms a step through the graph against {e_ms:.3f} ms "
+          f"eagerly ({e_ms / g_ms:.2f}x), in this run")
     return launches
 
 

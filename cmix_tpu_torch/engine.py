@@ -980,20 +980,27 @@ def _rows(sh, key, idx, lead=None, comm=None):
     return sh[key][idx] if lead is None else sh[key][lead, idx]
 
 
-def _set_rows_where(tbl2d, idx, vals, ok):
-    """``tbl2d[idx[ok]] = vals[ok]`` for (B,) rows ``idx`` and (B, ...)
-    ``vals``, duplicates resolved by ``_winner_pos``, in fixed shapes (no
-    host sync, so a graph can capture it): an entry masked out repeats the
-    write of the highest entry kept, or with none kept writes row 0 back
-    as it is."""
+def _masked_rows(tbl2d, idx, vals, ok):
+    """(rows, values) that write ``tbl2d[idx[ok]] = vals[ok]`` for (N,)
+    rows ``idx`` and (N, ...) ``vals`` in fixed shapes (no host sync, so a
+    graph can capture it): an entry masked out repeats the write of the
+    highest entry kept, or with none kept writes row 0 back as it is.  So
+    duplicate rows carry the values they carry in ``vals``."""
     pos = torch.arange(idx.shape[0], device=idx.device)
     h = torch.where(ok, pos, -1).max()
     some = h >= 0
     hc = h.clamp(min=0).view(1)
     f = torch.where(ok, idx, torch.where(some, idx.index_select(0, hc), 0))
     keep = torch.where(some, vals.index_select(0, hc), tbl2d[:1])
-    _set_rows(tbl2d, f, torch.where(
-        ok.view((-1,) + (1,) * (vals.dim() - 1)), vals, keep))
+    return f, torch.where(ok.view((-1,) + (1,) * (vals.dim() - 1)), vals,
+                          keep)
+
+
+def _set_rows_where(tbl2d, idx, vals, ok):
+    """``tbl2d[idx[ok]] = vals[ok]`` for (B,) rows ``idx`` and (B, ...)
+    ``vals``, duplicates resolved by ``_winner_pos``, in fixed shapes
+    (``_masked_rows``)."""
+    _set_rows(tbl2d, *_masked_rows(tbl2d, idx, vals, ok))
 
 
 def _scatter_add(n, idx, vals):
@@ -1003,6 +1010,24 @@ def _scatter_add(n, idx, vals):
     v = vals.reshape((f.numel(),) + tuple(vals.shape[idx.dim():]))
     return torch.zeros((n,) + tuple(v.shape[1:]), dtype=v.dtype,
                        device=v.device).index_add_(0, f, v)
+
+
+def _rows_at(at):
+    """-> the rows ``at`` of a table, or the table without ``at``."""
+    return (lambda v: v) if at is None else (lambda v: v.index_select(0, at))
+
+
+def _put_rows(w, f, rows):
+    """``w[f] = rows`` in place, for rows ``f`` whose duplicates carry
+    equal rows: the largest of each row's int32 bit patterns
+    (``scatter_reduce_`` "amax"), which no order changes, so deterministic
+    mode sorts nothing (``index_put_`` sorts ``f``), and the card's atomic
+    max is the native integer one.  -> w"""
+    bits = w.view(torch.int32)
+    bits.scatter_reduce_(0, f.view((-1,) + (1,) * (rows.dim() - 1))
+                         .expand_as(rows), rows.view(torch.int32), "amax",
+                         include_self=False)
+    return w
 
 
 def _bank_gather(sh, rowi, comm=None):
@@ -2111,16 +2136,22 @@ def _update_tree_b(cfg, g, C, sh, aux, byte, t, comm=None):
     mnorm = g.mix_norm
     B_f = 1.0 / B if mnorm else 1.0
 
-    def rows_step(w, n, idx, d):
-        # the gated rows' step: the mean of the blocks hitting a row, or
-        # (MIX_NORM=0) the sum
-        acc = _scatter_add(n, idx, d)
+    def rows_mean(n, idx, d, at=None):
+        # the mean of the blocks' deltas d at each row they hit, or
+        # (MIX_NORM=0) the sum; at the rows ``at`` only, if given
+        pick = _rows_at(at)
+        acc = pick(_scatter_add(n, idx, d))
         if mnorm:
-            acc = acc / torch.clamp(_scatter_add(n, idx, torch.ones(
-                idx.shape, device=dev)).view((n,) + (1,) * (d.dim()
+            cnt = pick(_scatter_add(n, idx, torch.ones(idx.shape,
+                                                       device=dev)))
+            acc = acc / torch.clamp(cnt.view((-1,) + (1,) * (d.dim()
                                                             - idx.dim())),
-                min=1.0)
-        return w + lr * acc
+                                    min=1.0)
+        return acc
+
+    def rows_step(w, n, idx, d):
+        # the gated rows' step
+        return w + lr * rows_mean(n, idx, d)
 
     x = aux["x"]
     err1 = (target[:, None, :] - aux["p1"]) * on_path[:, None, :]
@@ -2142,7 +2173,12 @@ def _update_tree_b(cfg, g, C, sh, aux, byte, t, comm=None):
             g.mix1_total, aux["dyn_idx"],
             torch.ones(aux["dyn_idx"].shape, device=dev))
     else:
-        sh["w1"] = rows_step(w1, g.mix1_total, aux["dyn_idx"], dws[:, 2:])
+        # the gated rows step on the rows the blocks hit only (every other
+        # row's step is w + lr * 0 = w): the table holds thousands of rows,
+        # a block hits one of each gated set (_put_rows)
+        f = aux["dyn_idx"].reshape(-1)
+        sh["w1"] = _put_rows(w1, f, w1.index_select(0, f) + lr * rows_mean(
+            g.mix1_total, aux["dyn_idx"], dws[:, 2:], f))
     sh["bias1"] = sh["bias1"] + lr * B_f * err1.sum(dim=0)
 
     st1 = aux["st1"]
@@ -2236,14 +2272,16 @@ def _update_mixers_int(g, C, sh, aux, target_i, onp_i, n8, t8_i):
         d = ieinsum("lk,bk,bnk->lbn", C.lvl_i, e, y) >> 8
         return mean_b(d.sum(dim=1).to(i32))
 
-    def rows_mean(n, idx, d, norm=True):
-        acc = _scatter_add(n, idx, d)
+    def rows_mean(n, idx, d, norm=True, at=None):
+        # at the rows ``at`` only, if given
+        pick = _rows_at(at)
+        acc = pick(_scatter_add(n, idx, d))
         if not norm:
             return acc
-        cnt = _scatter_add(n, idx, torch.ones(idx.shape, dtype=i32,
-                                              device=idx.device))
-        return acc // torch.clamp(cnt, min=1).view((n,) + (1,) * (d.dim()
-                                                                - idx.dim()))
+        cnt = pick(_scatter_add(n, idx, torch.ones(idx.shape, dtype=i32,
+                                                   device=idx.device)))
+        return acc // torch.clamp(cnt, min=1).view((-1,) + (1,) * (d.dim()
+                                                                 - idx.dim()))
 
     def step(w, d, clip=wclip):
         return torch.clamp(w + ((lr12 * d) >> 8), -clip, clip)
@@ -2256,8 +2294,13 @@ def _update_mixers_int(g, C, sh, aux, target_i, onp_i, n8, t8_i):
     w1 = sh["w1"].clone()
     w1[0] = step(aux["w_const"], mean_b(sum_b(dws8[:, 0])))
     w1[1:9] = step(aux["w_level"], lvl_sum(err1[:, 1], x))
-    sh["w1"] = step(w1, rows_mean(g.mix1_total, aux["dyn_idx"], dws8[:, 2:],
-                                  mnorm))
+    # the gated rows step on the rows the blocks hit only (every other
+    # row's delta is 0 and its |w| <= wclip, so it keeps its value): the
+    # table holds thousands of rows, a block hits one of each gated set
+    # (_put_rows)
+    f = aux["dyn_idx"].reshape(-1)
+    sh["w1"] = _put_rows(w1, f, step(w1.index_select(0, f), rows_mean(
+        g.mix1_total, aux["dyn_idx"], dws8[:, 2:], mnorm, f)))
     sh["bias1"] = sh["bias1"] + ((lr12 * mean_b(sum_b(err1))) >> 8)
 
     # ---- layer 2: level rows, byte- and class-gated rows, gated rows
@@ -2560,9 +2603,11 @@ def _rebound(static, new, path=""):
     return out
 
 
-def make_static_step(cfg: EngineConfig, g: Gates, device):
+def make_static_step(cfg: EngineConfig, g: Gates, device, comm=None):
     """-> body(st): one byte step on static buffers, the callable a CUDA
-    graph captures (the JAX package's scan body).
+    graph captures (the JAX package's scan body); with ``comm`` a sharded
+    rank's step (``make_byte_step``), whose every-lane history
+    ``comm.hist`` is static per group width.
 
     ``st`` holds the state trees ``sh``, ``pb``, ``cd``, the group's
     ``comp`` (B, C) uint8 and ``mode`` (B,), the segment's input rows
@@ -2572,7 +2617,7 @@ def make_static_step(cfg: EngineConfig, g: Gates, device):
     leaf the step rebound back into its static leaf, writes the row's
     outputs and advances t modulo the block, so every tensor of ``st``
     keeps its storage from step to step."""
-    step = make_byte_step(cfg, g, device)
+    step = make_byte_step(cfg, g, device, comm)
     row_mask, t_mask = cfg.seg_size - 1, cfg.block_size - 1
 
     def body(st):
@@ -2604,19 +2649,21 @@ class _Segments:
     ``torch.cuda.CUDAGraph`` and replayed seg_size times per segment; a
     later group of the same width copies its state into the buffers.
     Elsewhere, or with ``graph=False``, the eager step runs in a Python
-    loop with a device t (a sharded rank's step, with its ``comm``)."""
+    loop with a device t.  A sharded rank's step (``comm``) runs either
+    way, its collectives inside the graph."""
 
     def __init__(self, cfg: EngineConfig, g: Gates, device, graph,
                  comm=None):
-        self.cfg, self.device = cfg, device
+        self.cfg, self.device, self.comm = cfg, device, comm
         self.graph = graph and device.type == "cuda"
         if self.graph:
-            self.body = make_static_step(cfg, g, device)
+            self.body = make_static_step(cfg, g, device, comm)
         else:
             self.step = make_byte_step(cfg, g, device, comm)
             self.ts = torch.arange(cfg.block_size, device=device)
         self.st = self._g = None
         self.per_replay = None          # kernel launches one replay makes
+        self.comm_per_replay = None     # comm.counts one replay adds
 
     @property
     def ready(self):
@@ -2659,12 +2706,16 @@ class _Segments:
         loads the kernel library, the second must not synchronise with the
         host: an operator that does raises, naming itself), then capture
         one step on the static buffers.  The capture runs nothing: the
-        state is as the group handed it in.  The kernel launches of the
-        warm-up (on copies) and of the capture are taken back out of the
-        launch counts; each replay adds what the capture recorded."""
+        state is as the group handed it in (a sharded rank's history,
+        which the warm-up writes, is put back).  The kernel launches and
+        the ``comm`` counts of the warm-up (on copies) and of the capture
+        are taken back out of the counts; each replay adds what the
+        capture recorded."""
         from cmix_tpu_torch.utils.checkpoint import clone_state
-        dev = self.device
+        dev, comm = self.device, self.comm
         before = dmc.launch_counts()
+        if comm is not None:
+            hist, counts = comm.hist.clone(), dict(comm.counts)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -2680,12 +2731,22 @@ class _Segments:
                 del warm
         torch.cuda.current_stream(dev).wait_stream(side)
         warmed = dmc.launch_counts()
+        if comm is not None:
+            comm.hist.copy_(hist)
+            warm_counts = dict(comm.counts)
         self._g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self._g):
+        # thread-local: another thread's CUDA calls (a process group's
+        # watchdog querying the warm-up's collectives) stay legal while
+        # this thread captures
+        with torch.cuda.graph(self._g, capture_error_mode="thread_local"):
             self.body(self.st)
         now = dmc.launch_counts()
         self.per_replay = [a - b for a, b in zip(now, warmed)]
         dmc.add_launches([a - b for a, b in zip(now, before)], -1)
+        if comm is not None:
+            self.comm_per_replay = {k: v - warm_counts[k]
+                                    for k, v in comm.counts.items()}
+            comm.counts.update(counts)
 
     def run(self, inp_seg, outputs=True):
         """Enqueue one segment on its input rows ``inp_seg`` (S, B) uint8
@@ -2698,6 +2759,9 @@ class _Segments:
             for _ in range(S):
                 self._g.replay()
             dmc.add_launches(self.per_replay, S)
+            if self.comm is not None:
+                for k, v in self.comm_per_replay.items():
+                    self.comm.counts[k] += v * S
             return (self.st["e32"], self.st["c32"]) if outputs else None
         st = self.st
         sh, pb, cd, t = st["sh"], st["pb"], st["cd"], st["t"]
@@ -2727,10 +2791,18 @@ def make_segment_fn(cfg: EngineConfig, g: Gates, device, graph=True,
     (S, B)).  On CUDA one byte step is captured as a CUDA graph and
     replayed (a failed capture raises: there is no fallback); the eager
     step runs there only when asked (``graph=False``), and always on the
-    CPU; ``comm`` makes it a sharded rank's (``make_byte_step``), eager."""
-    if comm is not None and graph:
-        raise ValueError("a sharded step runs eagerly (graph=False)")
+    CPU.  ``comm`` makes it a sharded rank's (``make_byte_step``): its
+    collectives are captured with the step under NCCL or without a process
+    group; Gloo's cannot be, and a graph asked for there raises
+    ValueError."""
+    _check_capturable(graph, comm)
     return _Segments(cfg, g, device, graph, comm)
+
+
+def _check_capturable(graph, comm):
+    if graph and comm is not None and not comm.capturable:
+        raise ValueError("a Gloo rank's collectives cannot be captured in a "
+                         "CUDA graph: run its step eagerly (graph=False)")
 
 
 def make_seg_compactor(cfg: EngineConfig):
@@ -2782,9 +2854,15 @@ def make_transcoder(cfg: EngineConfig, g: Gates, device, graph=True,
     and capture, at the first group of a width; ``device``: the segments,
     a later group's copy into the graph, and the waits on the device;
     ``host``: the compaction); progress: a callable of the bytes done.
-    ``comm``: a sharded rank's (``parallel/mesh.py``; eager, its lanes)."""
+    ``comm``: a sharded rank's (``parallel/mesh.py``; its lanes, through
+    the graph under NCCL or without a process group, eagerly under Gloo,
+    where ``graph`` raises ValueError).  ``transcode.state()`` is (sh, pb,
+    cd) after the last group: the graph's buffers, which hold a later
+    group's state where the arrays handed in keep theirs."""
+    _check_capturable(graph, comm)
     compact = make_seg_compactor(cfg)
     segs = {}
+    last = []
     S = cfg.seg_size
     cuda = device.type == "cuda"
 
@@ -2819,6 +2897,7 @@ def make_transcoder(cfg: EngineConfig, g: Gates, device, graph=True,
             if b not in segs:
                 segs[b] = make_segment_fn(cfg, g, device, graph, comm)
             seg = segs[b]
+            last[:] = [seg]
             host = [tuple(torch.empty(shape, dtype=torch.int64,
                                       pin_memory=True)
                           for shape in ((S, b, 8), (S, b)))
@@ -2860,6 +2939,7 @@ def make_transcoder(cfg: EngineConfig, g: Gates, device, graph=True,
             out_len[i] = len(stream)
         return hist, out, out_len
 
+    transcode.state = lambda: last[0].state()
     return transcode
 
 

@@ -20,7 +20,9 @@ laid out dp-major over ("dp", "tp"), so rank r sits at
 Collectives run where the group's backend takes them (``Mesh.stage``):
 under NCCL on the card (a CPU tensor is copied there and back), under Gloo
 on the host (a CUDA tensor is copied to pinned host memory and back), so
-that ranks which share one card run under Gloo.
+that ranks which share one card run under Gloo.  Under NCCL a CUDA
+tensor's collectives read nothing back to the host and gather into one
+output (``all_gather_into_tensor``), so a CUDA graph can capture them.
 """
 
 import datetime
@@ -109,8 +111,12 @@ class Mesh:
         if group is None:
             return x
         src = self._on_backend(x)
-        parts = [torch.empty_like(src) for _ in range(
-            dist.get_world_size(group))]
+        n = dist.get_world_size(group)
+        if self.backend == "nccl":
+            out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+            dist.all_gather_into_tensor(out, src, group=group)
+            return out.to(x.device)
+        parts = [torch.empty_like(src) for _ in range(n)]
         dist.all_gather(parts, src, group=group)
         return torch.cat(parts, dim=0).to(x.device)
 

@@ -11,14 +11,16 @@ mesh from fresh state and checks the round trip.
 ``run_mesh`` is the launcher under it: one process per rank, joined over
 ``tcp://localhost:<a free port>``, each coding the same jobs in turn
 through ``mesh.make_sharded_transcoder`` (the ranks start once for all
-jobs); for every job each rank reports its wall seconds, its collective
-bytes, its DMC kernel launches and the digests of its shared state, and
-rank 0 the streams.  On the card the ranks run under Gloo
-unless there is a card for each (then NCCL), and a rank's device is card
+jobs); for every job each rank reports whether it replayed a CUDA graph,
+its wall seconds, its collective bytes, its DMC kernel launches and the
+digests of its shared state after each direction, and rank 0 the streams.
+On the card the ranks run under Gloo (eagerly) unless there is a card for
+each (then NCCL, through the graph), and a rank's device is card
 ``rank % device_count``.
 """
 
 import dataclasses
+import importlib
 import json
 import os
 import socket
@@ -45,21 +47,25 @@ def free_port():
 class Job:
     """One coding job of ``run_mesh``: ``blocks`` (B, block_size) uint8,
     ``cfg`` an ``engine.EngineConfig``, ``gates`` a gate mapping; with
-    ``decode`` the archive is decoded on the same mesh from fresh state."""
+    ``decode`` the archive is decoded on the same mesh from fresh state;
+    ``graph`` is ``make_sharded_transcoder``'s (None: its default)."""
     blocks: np.ndarray
     cfg: object
     gates: dict = None
     decode: bool = True
+    graph: bool = None
 
 
 def run_mesh(jobs, n_dp=1, n_tp=1, device="cuda", backend=None,
-             timeout=900.0):
+             timeout=900.0, rank_fn=None):
     """Code each ``Job`` of ``jobs`` in turn on one n_dp x n_tp mesh of
     spawned ranks.  Waits ``timeout`` seconds for the ranks, then kills
     them all and raises; stops them and raises at the first rank that
     fails.  -> [dict(streams=[bytes of each block], ranks=[each rank's
     report]) for each job]; a report's ``ready_s`` is the seconds from
-    the spawn to the rank's mesh."""
+    the spawn to the rank's mesh.  ``rank_fn``, "module:function"
+    importable on the ranks, takes the place of ``code_job`` (same
+    arguments; its report's ``streams``, if any, are rank 0's streams)."""
     n = n_dp * n_tp
     if backend is None:
         backend = ("nccl" if device != "cpu"
@@ -70,8 +76,9 @@ def run_mesh(jobs, n_dp=1, n_tp=1, device="cuda", backend=None,
                     np.ascontiguousarray(job.blocks, dtype=np.uint8))
         with open(os.path.join(tmp, "job.json"), "w") as f:
             json.dump(dict(jobs=[dict(cfg=dataclasses.asdict(j.cfg),
-                                      gates=j.gates or {}, decode=j.decode)
-                                 for j in jobs],
+                                      gates=j.gates or {}, decode=j.decode,
+                                      graph=j.graph)
+                                 for j in jobs], rank_fn=rank_fn,
                            n_dp=n_dp, n_tp=n_tp, device=device,
                            backend=backend, port=free_port(),
                            spawned=time.time()), f)
@@ -116,24 +123,74 @@ def run_mesh(jobs, n_dp=1, n_tp=1, device="cuda", backend=None,
                 reports.append(json.load(f))
         results = []
         for i in range(len(jobs)):
-            z = np.load(os.path.join(tmp, f"streams{i}.npz"))
+            path = os.path.join(tmp, f"streams{i}.npz")
+            z = np.load(path) if os.path.exists(path) else None
             results.append(dict(
-                streams=[z["out"][k, :z["lens"][k]].tobytes()
-                         for k in range(len(z["lens"]))],
+                streams=None if z is None else [
+                    z["out"][k, :z["lens"][k]].tobytes()
+                    for k in range(len(z["lens"]))],
                 ranks=[rep[i] for rep in reports]))
     return results
+
+
+def code_job(cfg, g, blocks, mesh, device, spec):
+    """One rank's part of a coding job: ``blocks`` (B, block_size) encoded
+    through ``make_sharded_transcoder`` from a fresh group state, and with
+    ``spec["decode"]`` decoded from fresh state.  -> the rank's report:
+    ``graph``, per direction its seconds, the graph's capture seconds
+    (``compile_s``, at the first group), ms a step without them,
+    collective bytes and calls a step and ``dmc_fused`` launches, the
+    ``state_digests`` of its shared state after the encode (``digests``)
+    and after the decode (the decode's ``digests``), the round trip's
+    result and ``streams`` (out, lens)."""
+    from cmix_tpu_torch.engine import MODE_DECODE, MODE_ENCODE
+    from cmix_tpu_torch.models import dmc
+    from cmix_tpu_torch.parallel.mesh import (
+        make_sharded_transcoder, sharded_group_state, state_digests)
+    from cmix_tpu_torch.utils.profiling import Meter
+    trans = make_sharded_transcoder(cfg, g, mesh, device, spec.get("graph"))
+    comm, b = trans.comm, blocks.shape[0]
+
+    def timed(sh, pb, inp, comp, mode):
+        for w in dmc.WRAPPERS:
+            w.launches = 0
+        before, meter = dict(comm.counts), Meter()
+        t0 = time.perf_counter()
+        res = trans(sh, pb, inp, comp, mode, meter)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        cap = meter.t.get("compile", 0.0)
+        return res, dict(
+            s=sec, compile_s=cap,
+            ms_per_step=(sec - cap) * 1e3 / cfg.block_size,
+            launches=dmc.fused_apply_walk.launches,
+            **{k: (v - before[k]) / cfg.block_size
+               for k, v in comm.counts.items()})
+
+    (_, out, lens), enc = timed(*sharded_group_state(cfg, g, b, mesh, device),
+                                blocks, np.zeros((b, cfg.comp_size), np.uint8),
+                                MODE_ENCODE)
+    # the state after coding is the transcoder's: under the graph a later
+    # group's state is copied into its buffers, not kept in the arrays
+    # handed in
+    report = dict(graph=trans.graph, encode=enc, streams=(out, lens),
+                  digests=state_digests(trans.state()[0]))
+    if spec["decode"]:
+        (hist, _, _), dec = timed(*sharded_group_state(cfg, g, b, mesh,
+                                                       device),
+                                  np.zeros_like(blocks), out, MODE_DECODE)
+        report.update(decode=dict(dec, digests=state_digests(
+            trans.state()[0])), roundtrip=bool(np.array_equal(hist, blocks)))
+    return report
 
 
 def _rank_job(tmp, rank):
     """One rank of ``run_mesh``'s jobs in ``tmp``: writes rank<r>.json, its
     report of each job (and rank 0 streams<i>.npz)."""
-    from cmix_tpu_torch.engine import (
-        MODE_DECODE, MODE_ENCODE, EngineConfig, make_gates, resolve_device)
-    from cmix_tpu_torch.models import dmc
+    from cmix_tpu_torch.engine import EngineConfig, make_gates, resolve_device
     from cmix_tpu_torch.parallel.distributed import init_distributed
-    from cmix_tpu_torch.parallel.mesh import (
-        make_mesh, make_sharded_transcoder, sharded_group_state,
-        state_digests)
+    from cmix_tpu_torch.parallel.mesh import make_mesh
     torch.set_num_threads(1)
     with open(os.path.join(tmp, "job.json")) as f:
         job = json.load(f)
@@ -147,49 +204,25 @@ def _rank_job(tmp, rank):
                      job["backend"])
     mesh = make_mesh(n_dp, n_tp)
     ready_s = time.time() - job["spawned"]
-
-    def timed(trans, cfg, sh, pb, inp, comp, mode):
-        comm = trans.comm
-        for w in dmc.WRAPPERS:
-            w.launches = 0
-        before = dict(comm.counts)
-        t0 = time.perf_counter()
-        res = trans(sh, pb, inp, comp, mode)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        return res, dict(
-            s=sec, ms_per_step=sec * 1e3 / cfg.block_size,
-            launches=dmc.fused_apply_walk.launches,
-            **{k: (v - before[k]) / cfg.block_size
-               for k, v in comm.counts.items()})
+    fn = code_job
+    if job["rank_fn"]:
+        mod, name = job["rank_fn"].split(":")
+        fn = getattr(importlib.import_module(mod), name)
 
     reports = []
     for i, spec in enumerate(job["jobs"]):
         blocks = np.load(os.path.join(tmp, f"blocks{i}.npy"))
-        cfg = EngineConfig(**spec["cfg"])
-        g = make_gates(spec["gates"])
-        b = blocks.shape[0]
-        trans = make_sharded_transcoder(cfg, g, mesh, device)
-        sh, pb = sharded_group_state(cfg, g, b, mesh, device)
-        (_, out, lens), enc = timed(trans, cfg, sh, pb, blocks,
-                                    np.zeros((b, cfg.comp_size), np.uint8),
-                                    MODE_ENCODE)
         report = dict(rank=rank, dp=mesh.dp_rank, tp=mesh.tp_rank,
                       backend=job["backend"], device=str(device),
-                      ready_s=ready_s, encode=enc,
-                      digests=state_digests(sh))
-        if spec["decode"]:
-            sh2, pb2 = sharded_group_state(cfg, g, b, mesh, device)
-            (hist, _, _), dec = timed(trans, cfg, sh2, pb2,
-                                      np.zeros_like(blocks), out,
-                                      MODE_DECODE)
-            report.update(decode=dec,
-                          roundtrip=bool(np.array_equal(hist, blocks)))
+                      ready_s=ready_s,
+                      **fn(EngineConfig(**spec["cfg"]),
+                           make_gates(spec["gates"]), blocks, mesh, device,
+                           spec))
+        streams = report.pop("streams", None)
         reports.append(report)
-        if rank == 0:
-            np.savez(os.path.join(tmp, f"streams{i}.npz"), out=out,
-                     lens=lens)
+        if rank == 0 and streams is not None:
+            np.savez(os.path.join(tmp, f"streams{i}.npz"), out=streams[0],
+                     lens=streams[1])
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
         json.dump(reports, f)
     torch.distributed.destroy_process_group()

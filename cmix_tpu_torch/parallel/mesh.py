@@ -15,7 +15,8 @@ JAX's GSPMD inserts every collective; here the byte step places its own
   zero, summed over tp (int32 tables, one non-zero term per entry: exact);
 * a row write computes the duplicate winner (``engine._winner_pos``) on
   the full index list, which every tp rank holds, and writes only the
-  rank's rows;
+  rank's rows, in fixed shapes (``engine._masked_rows``: an entry another
+  rank owns repeats the write of one this rank owns);
 * the shared updates (``engine._update_tree_b``, the LSTM's step) run on
   every lane's inputs, all-gathered over dp in lane order, so every rank
   applies the unsharded step's update and every replica of a shared leaf
@@ -24,6 +25,12 @@ JAX's GSPMD inserts every collective; here the byte step places its own
 * the arena's writes (match positions, indirect values) are all-gathered
   over dp before the winner rule; match cursors read any lane's history,
   which each rank keeps for every lane (B bytes all-gathered a step).
+
+No collective reads a value back to the host, and no write has a shape
+that depends on the data, so under NCCL (or without a process group) the
+step is captured as a CUDA graph with its collectives, the port's
+counterpart of the JAX package's sharded ``jax.jit``; Gloo's collectives
+stage through host memory, so a Gloo rank runs the step eagerly.
 
 pp/ep do not map to this format (no layer pipeline, no routed experts).
 """
@@ -34,7 +41,7 @@ import numpy as np
 import torch
 
 from cmix_tpu_torch.engine import (
-    D12_ROWS, EngineConfig, Gates, init_perblock, init_shared,
+    D12_ROWS, EngineConfig, Gates, _masked_rows, init_perblock, init_shared,
     make_transcoder, resolve_device)
 from cmix_tpu_torch.parallel.distributed import (
     Mesh, global_mesh, host_block_span, make_ordered_gather)
@@ -147,9 +154,11 @@ def _rebuild(tree, it):
 class ShardComm:
     """The collectives of one rank's byte step (``engine.make_byte_step``'s
     ``comm``).  ``start(b)`` begins a coding group of b lanes: the rank's
-    lanes start at ``lane0``, and ``hist`` holds every lane's history.
-    ``counts`` totals the bytes this rank sends into all-gathers and
-    all-reduces and the calls of each."""
+    lanes start at ``lane0``, and ``hist`` holds every lane's history (one
+    buffer per group width, zeroed in place, so a graph captured at a width
+    keeps reading it).  ``counts`` totals the bytes this rank sends into
+    all-gathers and all-reduces and the calls of each (a graph adds a
+    replay's at each replay)."""
 
     def __init__(self, cfg: EngineConfig, g: Gates, mesh: Mesh, device):
         self.mesh, self.device = mesh, device
@@ -158,15 +167,24 @@ class ShardComm:
         self.span = {k: host_block_span(n, mesh.n_tp, mesh.tp_rank)
                      for k, n in self.n_rows.items()}
         self.n_lanes = self.lane0 = 0
-        self.hist = None
+        self.hist, self._hists = None, {}
         self.counts = dict(gather_bytes=0, gathers=0, reduce_bytes=0,
                            reduces=0)
+
+    @property
+    def capturable(self):
+        """Whether a CUDA graph can capture the step's collectives: not
+        under Gloo, whose collectives stage through host memory."""
+        return self.mesh.backend != "gloo"
 
     def start(self, b):
         self.n_lanes = b
         self.lane0 = self.mesh.dp_rank * (b // self.mesh.n_dp)
-        self.hist = torch.zeros((b, self.block_size), dtype=torch.uint8,
-                                device=self.device)
+        if b not in self._hists:
+            self._hists[b] = torch.zeros((b, self.block_size),
+                                         dtype=torch.uint8,
+                                         device=self.device)
+        self.hist = self._hists[b].zero_()
 
     def own_lanes(self, tree):
         """The rank's lanes of a tree of every lane's tensors."""
@@ -217,7 +235,8 @@ class ShardComm:
     def set_rows(self, key, tbl2d, flat, vals):
         """``table2d[flat] = vals`` on this rank's rows: ``flat`` indexes
         the whole table's 2-d view (duplicates already resolved), tbl2d is
-        the rank's slice's view."""
+        the rank's slice's view.  The write has the shape of ``flat`` on
+        every rank (``engine._masked_rows``), with no collective."""
         if self.mesh.tp_group is None:
             tbl2d[flat] = vals
             return
@@ -228,28 +247,37 @@ class ShardComm:
             n = self.n_rows[key]
             r = flat % n
             local = (flat // n) * (hi - lo) + r - lo
-        own = (r >= lo) & (r < hi)
-        tbl2d[local[own]] = vals[own]
+        f, v = _masked_rows(tbl2d, local, vals, (r >= lo) & (r < hi))
+        tbl2d[f] = v
 
 
 def make_sharded_transcoder(cfg: EngineConfig, g: Gates, mesh: Mesh,
-                            device="cuda"):
-    """``transcode(sh, pb, inp, comp, mode) -> (hist, out, out_len)``, the
-    contract of ``engine.make_transcoder``, on this rank of ``mesh``.
+                            device="cuda", graph=None):
+    """``transcode(sh, pb, inp, comp, mode, meter=None) -> (hist, out,
+    out_len)``, the contract of ``engine.make_transcoder``, on this rank
+    of ``mesh``.
 
     Every rank receives the whole group's inputs (inp (B, N), comp (B, C),
     mode scalar or (B,)) and its own state (``sharded_group_state``: its tp
     slices and its dp lanes' ``pb``).  It codes its lanes through
-    ``engine.make_transcoder`` with the eager step (the Gloo collectives
-    cannot be captured in a CUDA graph) and returns every block, in block
-    order (the ordered gather over dp).  Runs on the card unless the caller
-    asks for the CPU.  ``transcode.comm`` is the step's ``ShardComm``."""
+    ``engine.make_transcoder``'s segment pipeline and returns every block,
+    in block order (the ordered gather over dp).  ``graph``: None replays
+    the byte step as a CUDA graph, collectives included, on the card under
+    NCCL or without a process group, and runs it eagerly under Gloo (whose
+    collectives cannot be captured; True raises ValueError there) or on the
+    CPU.  Runs on the card unless the caller asks for the CPU.
+    ``transcode.comm`` is the step's ``ShardComm``, ``transcode.graph``
+    whether it replays a graph, ``transcode.state()`` this rank's (sh, pb,
+    cd) after the last group (a later group's state lives in the graph's
+    buffers, not in the arrays handed in)."""
     device = resolve_device(device)
     comm = ShardComm(cfg, g, mesh, device)
-    lanes = make_transcoder(cfg, g, device, graph=False, comm=comm)
+    if graph is None:
+        graph = comm.capturable
+    lanes = make_transcoder(cfg, g, device, graph=graph, comm=comm)
     gather = make_ordered_gather(mesh)
 
-    def transcode(sh, pb, inp, comp, mode):
+    def transcode(sh, pb, inp, comp, mode, meter=None):
         b = int(inp.shape[0])
         if b % mesh.n_dp:
             raise ValueError(f"{b} lanes do not split over dp={mesh.n_dp}")
@@ -257,7 +285,7 @@ def make_sharded_transcoder(cfg: EngineConfig, g: Gates, mesh: Mesh,
         lo, hi = comm.lane0, comm.lane0 + b // mesh.n_dp
         mode = np.broadcast_to(np.asarray(mode, dtype=np.int64), (b,))
         _, out, out_len = lanes(sh, pb, np.asarray(inp)[lo:hi],
-                                np.asarray(comp)[lo:hi], mode[lo:hi])
+                                np.asarray(comp)[lo:hi], mode[lo:hi], meter)
         out_len, pay = gather(out_len, out)
         out = np.zeros((b, cfg.comp_size), dtype=np.uint8)
         n = min(pay.shape[1], cfg.comp_size)
@@ -265,4 +293,6 @@ def make_sharded_transcoder(cfg: EngineConfig, g: Gates, mesh: Mesh,
         return comm.hist.cpu().numpy(), out, out_len
 
     transcode.comm = comm
+    transcode.graph = bool(graph) and device.type == "cuda"
+    transcode.state = lanes.state
     return transcode

@@ -278,3 +278,74 @@ def test_sharded_ranks_on_the_card_equal_unsharded(gpu):
     assert res["streams"] == chip_smoke._unsharded_streams(
         cfg, {"PORT": 1}, data, gpu)
     assert [r["encode"]["launches"] for r in res["ranks"]] == [64, 64]
+
+
+def test_nccl_rank_replays_the_sharded_graph(gpu):
+    """One NCCL rank (mesh 1 x 1, its collectives over groups of one rank)
+    codes through the captured sharded step: PORT=1 and the fast profile
+    write the unsharded graph's streams byte for byte (the step's float
+    work is the unsharded step's, in the same order), the fast archive
+    decodes exactly, and each replay counts one dmc_fused launch."""
+    from cmix_tpu_torch.parallel.dryrun import Job, run_mesh
+    cfg = E.EngineConfig(**dict(GRAPH_KW, block_size=64))
+    data = _lanes(4, 64)
+    res = run_mesh([Job(data, cfg, {"PORT": 1}, decode=False),
+                    Job(data, cfg, {})], 1, 1, "cuda", timeout=300)
+    for r, gates in zip(res, ({"PORT": 1}, {})):
+        rank = r["ranks"][0]
+        assert rank["backend"] == "nccl" and rank["graph"]
+        assert r["streams"] == chip_smoke._unsharded_streams(cfg, gates,
+                                                             data, gpu)
+        assert rank["encode"]["launches"] == 64
+    assert res[1]["ranks"][0]["roundtrip"]
+    assert res[1]["ranks"][0]["decode"]["digests"] == \
+        res[1]["ranks"][0]["digests"]
+
+
+def test_sharded_capture_runs_its_warm_up_under_sync_debug_error(gpu):
+    """The sharded step's capture (an NCCL group of one rank in this
+    process) warms up under set_sync_debug_mode("error"): it passes, and a
+    collective that reads a value back to the host raises there."""
+    import torch.distributed as dist
+    from cmix_tpu_torch.parallel import mesh as M
+    from cmix_tpu_torch.parallel.dryrun import free_port
+    cfg, g = E.EngineConfig(**GRAPH_KW), E.make_gates({"PORT": 1})
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        m = M.make_mesh(1, 1)
+
+        def start():
+            comm = M.ShardComm(cfg, g, m, gpu)
+            comm.start(2)
+            seg = E.make_segment_fn(cfg, g, gpu, True, comm)
+            sh, pb = M.sharded_group_state(cfg, g, 2, m, gpu)
+            with torch.no_grad():
+                seg.start(sh, pb, E.init_coder(2, gpu),
+                          torch.zeros((2, cfg.comp_size), dtype=torch.uint8,
+                                      device=gpu),
+                          torch.zeros(2, dtype=torch.int64, device=gpu))
+            return seg, comm
+        seg, comm = start()
+        assert seg.graph and seg.ready and seg.per_replay == [1, 0]
+        assert comm.counts == dict(gather_bytes=0, gathers=0,
+                                   reduce_bytes=0, reduces=0)
+        assert seg.comm_per_replay["gathers"] == 2
+        assert not comm.hist.any()
+        assert torch.cuda.get_sync_debug_mode() == 0
+        rows = M.ShardComm.rows
+
+        def syncing(self, *args):
+            out = rows(self, *args)
+            int(out.reshape(-1)[0])
+            return out
+        M.ShardComm.rows = syncing
+        try:
+            with pytest.raises(RuntimeError, match="synchroniz"):
+                start()
+        finally:
+            M.ShardComm.rows = rows
+        assert torch.cuda.get_sync_debug_mode() == 0
+    finally:
+        dist.destroy_process_group()
+

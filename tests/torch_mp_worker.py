@@ -12,6 +12,9 @@ ordered gather must give every rank's lengths and payloads in block order
 random one from a seed), ``gather_streams`` the trimmed streams, and
 ``broadcast_state`` rank 0's tensors on every rank.  Rank 0 writes the
 gathered random blocks to <outdir>/gather.npz; every rank prints OK.
+
+``static_body_job`` is a rank of tests/test_torch_sharded_static.py, run
+through ``parallel/dryrun.run_mesh``'s ``rank_fn``.
 """
 
 import os
@@ -22,6 +25,7 @@ import numpy as np
 
 LANES = 4
 TIMEOUT = 120.0
+STATIC_STEPS = 6
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -56,6 +60,73 @@ def run_ranks(world, outdir, timeout=TIMEOUT):
                 p.kill()
                 p.communicate()
     return outs
+
+
+def static_body_job(cfg, g, blocks, mesh, device, spec):
+    """A rank of tests/test_torch_sharded_static.py (``run_mesh``'s
+    ``rank_fn``): STATIC_STEPS byte steps of the static sharded body
+    (``engine.make_static_step`` with a ``ShardComm``, the callable the
+    graph captures) run eagerly beside the eager sharded step
+    (``make_byte_step(..., comm)``) from one state on the rank's lanes of
+    ``blocks``.  -> the names of what differs (each step's outputs, every
+    leaf, the every-lane history), whether every static buffer kept its
+    storage, and whether a graph asked for under Gloo raised ValueError
+    (``make_segment_fn`` and ``make_sharded_transcoder``)."""
+    import torch
+    from cmix_tpu_torch import engine as E
+    from cmix_tpu_torch.parallel.mesh import (
+        ShardComm, make_sharded_transcoder, sharded_group_state)
+    from cmix_tpu_torch.utils.checkpoint import _leaves, clone_state
+    b = blocks.shape[0]
+    n = b // mesh.n_dp
+    lo = mesh.dp_rank * n
+    inp = torch.as_tensor(np.ascontiguousarray(blocks[lo:lo + n].T))
+    body_comm, step_comm = (ShardComm(cfg, g, mesh, device)
+                            for _ in range(2))
+    body_comm.start(b)
+    step_comm.start(b)
+    sh, pb = sharded_group_state(cfg, g, b, mesh, device)
+    cd = E.init_coder(n, device)
+    comp = torch.zeros((n, cfg.comp_size), dtype=torch.uint8)
+    mode = torch.zeros(n, dtype=torch.int64)
+    S = cfg.seg_size
+    st = dict(sh=clone_state(sh), pb=clone_state(pb), cd=clone_state(cd),
+              comp=comp, mode=mode, inp=inp[:S].clone(),
+              e32=torch.zeros((S, n, 8), dtype=torch.int64),
+              c32=torch.zeros((S, n), dtype=torch.int64),
+              t=torch.zeros((), dtype=torch.int64))
+
+    def ptrs():
+        return {k: v.data_ptr() for k, v in _leaves(st)} | {
+            "comm.hist": body_comm.hist.data_ptr()}
+    before = ptrs()
+    body = E.make_static_step(cfg, g, device, body_comm)
+    step = E.make_byte_step(cfg, g, device, step_comm)
+    differ = []
+    with torch.no_grad():
+        for s in range(STATIC_STEPS):
+            body(st)
+            sh, pb, cd, e32, c32 = step(sh, pb, cd, comp, inp[s],
+                                        torch.tensor(s), mode)
+            if not (torch.equal(st["e32"][s], e32)
+                    and torch.equal(st["c32"][s], c32)):
+                differ.append(f"outputs at step {s}")
+    got = dict(_leaves(st))
+    for name, x in _leaves(dict(sh=sh, pb=pb, cd=cd)):
+        if not (x.dtype == got[name].dtype and torch.equal(got[name], x)):
+            differ.append(name)
+    if not torch.equal(body_comm.hist, step_comm.hist):
+        differ.append("comm.hist")
+    refused = []
+    for make in (lambda: E.make_segment_fn(cfg, g, device, True, body_comm),
+                 lambda: make_sharded_transcoder(cfg, g, mesh, device, True)):
+        try:
+            make()
+            refused.append(False)
+        except ValueError:
+            refused.append(True)
+    return dict(differ=differ, leaves=len(got), storage_kept=ptrs() == before,
+                t=int(st["t"]), gloo_graph_refused=refused)
 
 
 def _rank(rank, world, port, outdir):
