@@ -43,7 +43,10 @@ without one.  Phases, each of which raises on failure:
    JAX package's PORT=1 archive ``testdata/routed.tcmx`` decoded and
    re-encoded byte-identically on the card and on the CPU; and the
    portable profile at CLI widths, its archive held to the JAX package's
-   sha256;
+   sha256; then under CMIX_JPEGC=0 (the JPEG a pass-through segment, no
+   JPEGX): the JAX package's PORT=1 archive ``testdata/routed_nojpegc.tcmx``
+   decoded and re-encoded byte-identically on the card and on the CPU, and
+   the fast profile at CLI widths (gate record X86X=2;LMS=2;GRID2=1);
 8. the gated path on ``testdata/gated.raw`` (the routed fixture and ~1 KiB
    of text with table rows) under every off-by-default mechanism the port
    runs (``utils/profiling.GATED``: SSE2, APM3X, MIX_DYN4, MIX_KIND,
@@ -117,9 +120,10 @@ to 0 just before it and read just after (the sharded phase's ranks each
 around each of their transcodes); a graph's replays count the launches
 its capture recorded (the warm-up's launches, on copies of the state, and
 the capture's host calls are not counted).  The JSON line sums them (and
-gives the routed path's, the gated path's, the gates path's, of them at
-walk depths 8 and 4, the dictionary path's, its pretraining's and the
-sharded phase's sums on their own).  Every phase prints its seconds.
+gives the routed path's, its CMIX_JPEGC=0 legs', the gated path's, the
+gates path's, of them at walk depths 8 and 4, the dictionary path's, its
+pretraining's and the sharded phase's sums on their own).  Every phase
+prints its seconds.
 """
 
 import hashlib
@@ -179,6 +183,10 @@ ROUTED_FIXTURE = os.path.join(ROOT, "testdata", "routed.raw")
 ROUTED_ARCHIVE = os.path.join(ROOT, "testdata", "routed.tcmx")
 ROUTED_SMALL = dict(PORT_SMALL, block_size=128, seg_size=128)
 ROUTED_BATCH = 64
+# the same under CMIX_JPEGC=0, the JPEG kept as a pass-through segment
+# (tests/torch_parity.py --write-routed-nojpegc-fixture writes it,
+# tests/test_torch_jpegc_runner.py holds both packages to it)
+ROUTED_NOJPEGC_ARCHIVE = os.path.join(ROOT, "testdata", "routed_nojpegc.tcmx")
 # the routed fixture at CLI widths: the fast profile in 256-byte blocks;
 # the portable profile in 128-byte blocks, held to the sha256 of the JAX
 # package's PORT=1 archive on the CPU (tests/test_torch_routed_cli_width.py
@@ -843,9 +851,47 @@ def routed_path(device):
     return windows + w2
 
 
+def routed_nojpegc_path(device):
+    """The routed fixture under CMIX_JPEGC=0 (its JPEG a pass-through
+    segment, no JPEGX): the JAX package's PORT=1 archive decoded and
+    re-encoded byte-identically on the card and on the CPU, and the fast
+    profile at CLI widths -> the launch windows."""
+    from cmix_tpu_torch.preprocess import wrt
+    with open(ROUTED_FIXTURE, "rb") as f:
+        data = f.read()
+    with EnvVar("CMIX_JPEGC", "0"):
+        payload, meta = wrt.transform(data)
+        if (meta[-1][0] != wrt.SEG_JPEG
+                or wrt.SEG_JPEGC in {e[0] for e in meta}
+                or wrt.untransform(payload, meta) != data):
+            raise AssertionError(f"routed, CMIX_JPEGC=0: segments {meta}: "
+                                 "the JPEG is not a pass-through segment")
+        print(f"routed path, CMIX_JPEGC=0: {len(data)} B -> {len(payload)} "
+              f"B payload, segments {meta}")
+        t0 = time.time()
+        windows = portable_cross_device(
+            device, ROUTED_FIXTURE, ROUTED_NOJPEGC_ARCHIVE, ROUTED_SMALL,
+            ROUTED_BATCH, "routed content, CMIX_JPEGC=0")
+        print(f"routed path, CMIX_JPEGC=0: the JAX archive across devices "
+              f"{time.time() - t0:.1f} s; fast profile, CLI widths, block "
+              f"size cut 65536 -> {ROUTED_BLOCK} "
+              f"({-(-len(payload) // ROUTED_BLOCK)} blocks in one group)")
+        t0 = time.time()
+        w, arc = _round_trip("routed path, CMIX_JPEGC=0", data,
+                             _cli_cfg(ROUTED_BLOCK), device)
+    gates = _gate_record(arc)
+    if gates != b"X86X=2;LMS=2;GRID2=1" or not arc[5] & 1:
+        raise AssertionError(f"routed path, CMIX_JPEGC=0: gate record "
+                             f"{gates!r}, flags {arc[5]}: not the routed "
+                             "gates without JPEGX, and a table")
+    print(f"routed path, CMIX_JPEGC=0: gate record {gates.decode()!r}, "
+          f"segment table written; the fast leg {time.time() - t0:.1f} s")
+    return windows + w
+
+
 class EnvVar:
-    """``os.environ[name] = value`` inside the window (JVAL_ROUTE: both
-    packages' ``compress`` read it)."""
+    """``os.environ[name] = value`` inside the window (JVAL_ROUTE and
+    CMIX_JPEGC: both packages' ``compress`` read them)."""
 
     def __init__(self, name, value):
         self.name, self.value = name, value
@@ -1576,6 +1622,8 @@ def main():
     windows += w
     routed = phase("routed path", routed_path, device)
     windows += routed
+    nojpegc = phase("routed path, CMIX_JPEGC=0", routed_nojpegc_path, device)
+    windows += nojpegc
     gated = phase("gated path", gated_path, device)
     windows += gated
     gates, gates_arcs = phase("gates path", gates_path, device)
@@ -1602,6 +1650,7 @@ def main():
             "launches": sum(w.counts[name] for w in windows)
             + (sharded if name == "dmc_fused" else 0),
             "launches_routed": sum(w.counts[name] for w in routed),
+            "launches_routed_nojpegc": sum(w.counts[name] for w in nojpegc),
             "launches_gated": sum(w.counts[name] for w in gated),
             "launches_gates": sum(w.counts[name] for ws in gates.values()
                                   for w in ws),
@@ -1620,7 +1669,9 @@ def main():
             "floor_ms": r["floor_ms"], "floor_by": "latency",
             "library_ms": None})
     summary = ", ".join(f"{k['name']} launches={k['launches']} (routed "
-                        f"path {k['launches_routed']}, gated path "
+                        f"path {k['launches_routed']}, routed under "
+                        f"CMIX_JPEGC=0 {k['launches_routed_nojpegc']}, "
+                        f"gated path "
                         f"{k['launches_gated']}, gates path "
                         f"{k['launches_gates']}: at L=8 "
                         f"{k['launches_gates_l8']}, at L=4 "

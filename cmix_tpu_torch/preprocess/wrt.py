@@ -12,10 +12,13 @@ design), the 24-bit color decorrelation (``media.img24_encode``) and the
 JPEG recoder (``jpeg.jpeg_recode``).  ``block_strides``,
 ``block_jpeg_coords`` and ``block_kinds`` derive the engine's per-block
 fields from the segment table, so encode and decode agree.  Without a
-dictionary text is recorded as a raw segment, and the port always takes
-the JAX package's default routes (JPEG recoding on: it reads no
-``CMIX_JPEGC``).
+dictionary text is recorded as a raw segment.  ``CMIX_JPEGC=0`` in the
+environment turns JPEG recoding off, as in the JAX package: ``transform``
+reads it on each call and then keeps every JPEG span as a pass-through
+``SEG_JPEG`` entry.
 """
+
+import os
 
 import numpy as np
 
@@ -287,7 +290,8 @@ def transform(data: bytes, dictionary=None):
     (payload, meta): text is WRT-coded where ``dictionary`` (a
     ``Dictionary``) shrinks it; meta entries are (type, enc_len, raw_len),
     media entries add the record stride, recoded-JPEG entries also the body
-    offset and the per-component plane lengths."""
+    offset and the per-component plane lengths.  JPEG spans are recoded
+    unless ``CMIX_JPEGC`` is "0" in the environment."""
     if not data:
         return data, [(SEG_RAW, 0, 0)]
     from cmix_tpu_torch.preprocess.jpeg import (
@@ -313,7 +317,8 @@ def transform(data: bytes, dictionary=None):
             payload += raw
             meta.append((typ, len(raw), len(raw), stride))
         elif typ == SEG_JPEG:
-            enc = jpeg_recode(raw)           # None unless exact inverse
+            enc = (jpeg_recode(raw)          # None unless exact inverse
+                   if os.environ.get("CMIX_JPEGC", "1") != "0" else None)
             if enc is None:
                 payload += raw
                 meta.append((SEG_JPEG, len(raw), len(raw)))

@@ -13,13 +13,14 @@ in the fast profile and the portable integer profile (PORT=1,
 ``--portable``), on any content.  The CLI takes the model gates from the
 environment, as the JAX package's does (``SSE2=1 python -m
 cmix_tpu_torch.runner c ...``; the archive's gate record pins them for
-decode).  ``compress`` runs the
-content transforms (``preprocess/wrt.transform``: E8/E9 on x86 code, the
-24-bit color decorrelation, JPEG recoding), routes the content gates on
-top of the caller's (X86X=2 for x86 code, GRID2=1 for strided media or a
-recoded JPEG, LMS=2 for media outside PORT, JPEGX=1 for a recoded JPEG,
-JVAL=$JVAL_ROUTE with it: the JAX package's defaults) and writes the
-segment table; ``decompress`` reads it and inverts the transforms.  With
+decode), and so does ``compress`` when it is given no ``gates``.
+``compress`` runs the content transforms (``preprocess/wrt.transform``:
+E8/E9 on x86 code, the 24-bit color decorrelation, JPEG recoding unless
+$CMIX_JPEGC is "0"), routes the content gates on top of the caller's
+(X86X=2 for x86 code, GRID2=1 for strided media or a recoded JPEG, LMS=2
+for media outside PORT, JPEGX=1 for a recoded JPEG, JVAL=$JVAL_ROUTE with
+it: the JAX package's defaults) and writes the segment table;
+``decompress`` reads it and inverts the transforms.  With
 a dictionary (``--dict PATH``, or ``auto`` for the port's copy of the
 shipped ``data/english.dic``) text is WRT-coded where that shrinks it,
 WRTW ($WRTW_ROUTE, 1 by default) is routed with it, and every coding
@@ -303,9 +304,12 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
     dictionary: path of a word list ("auto": AUTO_DICT); enables the WRT
     text transform where it shrinks the payload, and pretraining.
     gates: mapping of gate name -> value (missing = default), any set
-    ``engine.make_gates`` accepts.  The content-routed gates (JVAL among
-    them) are then set from the content and ``_routed_gates``'s
-    environment variables, whatever the caller gave.
+    ``engine.make_gates`` accepts; None (the default) takes the gates set
+    in the environment (``env_gates``), as the JAX package's ``compress``
+    codes with the gates its engine read from the environment.  A mapping
+    given, ``{}`` included, is used as it is.  The content-routed gates
+    (JVAL among them) are then set from the content and
+    ``_routed_gates``'s environment variables, whatever the caller gave.
     resume_path: a journal of the finished coding groups' streams: each
     group's are saved once they are on the host, a run restarted with the
     same input, config, gates and (in the fast profile) device type skips
@@ -319,7 +323,8 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
                           "of two (the archive header stores its log2)")
     # the caller's JVAL is replaced by the routed one: JVAL without JPEGX
     # is no error here
-    g = make_gates({k: v for k, v in (gates or {}).items() if k != "JVAL"})
+    gates = env_gates() if gates is None else gates
+    g = make_gates({k: v for k, v in gates.items() if k != "JVAL"})
     dev = resolve_device(device)
     d, dict_bytes, fp, tables = (_load_dictionary(dictionary)
                                  if dictionary is not None

@@ -7,34 +7,19 @@ native library where that builds) on exe100k.raw."""
 
 import glob
 
-import numpy as np
 import pytest
 
 from cmix_tpu.preprocess import jpeg as jjpeg
 from cmix_tpu.preprocess import wrt as jwrt
 from cmix_tpu_torch.preprocess import jpeg, wrt
-from torch_parity import make_jpeg
+from torch_parity import make_jpeg, transform_parity
 
 FILES = sorted(glob.glob("testdata/*.raw") + glob.glob("testdata/media/*"))
 
 
 def _check(data, monkeypatch, expect=None):
     monkeypatch.delenv("CMIX_JPEGC", raising=False)   # the JAX default
-    payload, meta = wrt.transform(data)
-    ref_payload, ref_meta = jwrt.transform(data, None)
-    assert payload == ref_payload
-    assert meta == [tuple(e) for e in ref_meta]
-    assert wrt.untransform(payload, meta) == data
-    for block in (256, 4096, 65536):
-        nb = max(1, -(-len(payload) // block))
-        for port_fn, jax_fn in ((wrt.block_strides, jwrt.block_strides),
-                                (wrt.block_kinds, jwrt.block_kinds)):
-            got, want = port_fn(meta, nb, block), jax_fn(ref_meta, nb, block)
-            assert got.dtype == want.dtype and np.array_equal(got, want)
-        got = wrt.block_jpeg_coords(meta, nb, block)
-        want = jwrt.block_jpeg_coords(ref_meta, nb, block)
-        for a, b in zip(got, want):
-            assert a.dtype == b.dtype and np.array_equal(a, b)
+    meta = transform_parity(data)
     if expect is not None:
         assert expect <= {e[0] for e in meta}
     return meta

@@ -333,6 +333,31 @@ def _wav(nframes):
             + b"data" + struct.pack("<I", len(data)) + data)
 
 
+def transform_parity(data, blocks=(256, 4096, 65536)):
+    """Both packages' ``transform`` of ``data`` in the present environment:
+    the same payload and segment table, an exact ``untransform``, and the
+    same ``block_strides``, ``block_kinds`` and ``block_jpeg_coords`` at
+    each of ``blocks`` -> the port's segment table."""
+    from cmix_tpu.preprocess import wrt as jwrt
+    from cmix_tpu_torch.preprocess import wrt
+    payload, meta = wrt.transform(data)
+    ref_payload, ref_meta = jwrt.transform(data, None)
+    assert payload == ref_payload
+    assert meta == [tuple(e) for e in ref_meta]
+    assert wrt.untransform(payload, meta) == data
+    for block in blocks:
+        nb = max(1, -(-len(payload) // block))
+        for port_fn, jax_fn in ((wrt.block_strides, jwrt.block_strides),
+                                (wrt.block_kinds, jwrt.block_kinds)):
+            got, want = port_fn(meta, nb, block), jax_fn(ref_meta, nb, block)
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+        got = wrt.block_jpeg_coords(meta, nb, block)
+        want = jwrt.block_jpeg_coords(ref_meta, nb, block)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+    return meta
+
+
 def make_jpeg(w=64, h=48, mode="RGB", seed=0, **save_kw):
     """A small baseline JPEG made by PIL (as tests/test_jpeg.py makes
     one); skips the calling test without PIL."""
@@ -407,6 +432,22 @@ def routed_fixture():
     return data, arc
 
 
+def routed_nojpegc_fixture():
+    """(input bytes, the JAX package's PORT=1 archive of it under
+    CMIX_JPEGC=0) for the committed fixture that chip_smoke.py decodes and
+    re-encodes: the routed fixture with its JPEG kept as a pass-through
+    segment, at ROUTED_SMALL's widths in one group."""
+    import chip_smoke
+    from cmix_tpu import engine as je
+    with open(chip_smoke.ROUTED_FIXTURE, "rb") as f:
+        data = f.read()
+    with chip_smoke.EnvVar("CMIX_JPEGC", "0"), \
+            jax_runner_gates({"PORT": 1}) as jr:
+        arc = jr.compress(data, je.EngineConfig(**chip_smoke.ROUTED_SMALL),
+                          max_batch=chip_smoke.ROUTED_BATCH)
+    return data, arc
+
+
 def knobs_fixture():
     """(input bytes, the JAX package's PORT=1 archive of it under
     ``utils/profiling.KNOBS``) for the committed knobs fixture: the gated
@@ -442,6 +483,15 @@ elif __name__ == "__main__" and sys.argv[1:] == ["--write-routed-fixture"]:
         f.write(arc)
     print(f"{chip_smoke.ROUTED_FIXTURE}: {len(data)} bytes; "
           f"{chip_smoke.ROUTED_ARCHIVE}: {len(arc)} bytes")
+elif __name__ == "__main__" and sys.argv[1:] == [
+        "--write-routed-nojpegc-fixture"]:
+    # python tests/torch_parity.py --write-routed-nojpegc-fixture: (re)write
+    # the JAX package's PORT=1 archive of the routed fixture, CMIX_JPEGC=0
+    import chip_smoke
+    _, arc = routed_nojpegc_fixture()
+    with open(chip_smoke.ROUTED_NOJPEGC_ARCHIVE, "wb") as f:
+        f.write(arc)
+    print(f"{chip_smoke.ROUTED_NOJPEGC_ARCHIVE}: {len(arc)} bytes")
 elif __name__ == "__main__" and sys.argv[1:] == ["--write-gated-fixture"]:
     # python tests/torch_parity.py --write-gated-fixture: (re)write the gated
     # fixture's input and the JAX package's PORT=1 archive of it
