@@ -109,9 +109,11 @@ without one.  Phases, each of which raises on failure:
     equal (integer leaves exact, floats within 2e-5); wall ms (untraced
     and traced), device busy ms and idle share per step, graph and eager,
     at bench widths and gates, B=256 and B=1 (``utils/profiling.py``);
-    and one bench-width segment (2048 steps x 256 lanes of bench4m.raw)
-    encoded and decoded through ``engine.make_transcoder`` with a Meter,
-    its report printed (MB/s each way);
+    and the port's bench (``cmix_tpu_torch/bench.py`` ``run``) on one
+    segment (2048 steps x 256 lanes of bench4m.raw): a first encode, the
+    timed encode (its streams equal to the first's) and the timed decode
+    (exact) through one ``engine.make_transcoder`` with a Meter each,
+    2048 ``dmc_fused`` launches a pass, the reports and the run printed;
 15. a ``kernels:`` summary, the JSON kernel line, the card line, and last
     the contract line ``{"ok": true, "device": {...}}``.
 
@@ -129,7 +131,6 @@ prints its seconds.
 import hashlib
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -257,14 +258,6 @@ SHARD_SIZE_TOL = 0.01
 # the EngineConfig defaults)
 CLI_WIDTHS = dict(tbits=18, lstm_hidden=256, lstm_horizon=4,
                   dmc_nodes=16384)
-
-
-def _card():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    return out[0]
 
 
 def _events_ms(fn, reps):
@@ -1540,56 +1533,54 @@ def graph_profiles():
 
 
 def bench_segment(device):
-    """One segment at bench widths and gates (BENCH_SEG steps x 256 lanes
-    of bench4m.raw: the block cut to one segment) encoded and decoded
-    through ``engine.make_transcoder`` with a Meter: exact, one dmc_fused
-    launch per byte step each way, and the Meter's report (MB/s)."""
+    """The port's bench (``cmix_tpu_torch/bench.py``) on one segment:
+    ``bench.run`` at its config and gates with the block cut to BENCH_SEG
+    steps, on the first BENCH_SEG bytes of each of bench4m.raw's 256
+    blocks.  Its three passes (first encode with the graph's capture, timed
+    encode, timed decode) go through one ``engine.make_transcoder`` with a
+    Meter each: exact round trip, the timed encode's streams equal to the
+    first's, no stream overflowing, and one dmc_fused launch per byte step
+    in each pass; the run's numbers printed as JSON."""
+    import dataclasses
     import numpy as np
-    from cmix_tpu_torch import engine as E
-    from cmix_tpu_torch.utils.profiling import Meter
-    cfg = E.EngineConfig(block_size=BENCH_SEG, tbits=18, mbits=18, ibits=16,
-                         lstm_hidden=256, seg_size=BENCH_SEG, dmc_nodes=16384,
-                         lstm_horizon=4)
-    g = E.make_gates(E.BENCH_GATES)
-    raw = np.fromfile(os.path.join(ROOT, "testdata", "bench4m.raw"),
-                      dtype=np.uint8).reshape(256, -1)[:, :BENCH_SEG].copy()
-    trans = E.make_transcoder(cfg, g, device)
-    windows, reports = [], {}
-    comp = np.zeros((256, cfg.comp_size), np.uint8)
-    legs = (("encode", raw, E.MODE_ENCODE), ("decode", None, E.MODE_DECODE))
-    for label, inp, mode in legs:
-        meter = Meter()
-        with Launches() as w:
-            hist, out, out_len = trans(
-                E.init_shared(cfg, g, device),
-                E.init_perblock(cfg, g, 256, device),
-                np.zeros_like(raw) if inp is None else inp, comp, mode,
-                meter=meter)
-        windows.append(w)
-        if mode == E.MODE_ENCODE:
-            if np.any(out_len > cfg.comp_size):
-                raise AssertionError("bench segment: a stream overflows")
-            comp, coded = out, int(out_len.sum())
-        if w.counts["dmc_fused"] != BENCH_SEG:
+    from cmix_tpu_torch import bench
+    # the bench's config and gates, whatever the environment holds
+    cfg, gates = bench.bench_config({})
+    cfg = dataclasses.replace(cfg, block_size=BENCH_SEG, seg_size=BENCH_SEG)
+    data = np.frombuffer(bench.corpus(), np.uint8).reshape(256, -1)[
+        :, :BENCH_SEG].tobytes()
+    with Launches() as w:
+        r = bench.run(data, cfg, gates, device)
+    if not r["fits"]:
+        raise AssertionError("bench segment: a stream overflows")
+    if not r["reencode_identical"]:
+        raise AssertionError("bench segment: the timed encode's streams "
+                             "differ from the first encode's")
+    if not r["roundtrip"]:
+        raise AssertionError("bench segment: the decoded history is not "
+                             "the input")
+    for label, p in r["passes"].items():
+        if p["dmc_fused_launches"] != BENCH_SEG:
             raise AssertionError(f"bench segment {label}: dmc_fused launches "
-                                 f"{w.counts['dmc_fused']}, not {BENCH_SEG}")
-        if not np.array_equal(hist, raw):
-            raise AssertionError(f"bench segment {label}: the history is "
-                                 "not the input")
-        meter.out_bytes = coded
-        reports[label] = meter.report({"mode": label})
+                                 f"{p['dmc_fused_launches']}, not "
+                                 f"{BENCH_SEG}")
+    if w.counts["dmc_fused"] != 3 * BENCH_SEG:
+        raise AssertionError(f"bench segment: dmc_fused launches "
+                             f"{w.counts['dmc_fused']}, not {3 * BENCH_SEG}")
+    for label, report in r["meters"].items():
         print(f"graph: bench segment ({BENCH_SEG} steps x 256 lanes of "
               f"bench4m.raw, bench widths and gates) {label}: "
-              f"{json.dumps(reports[label])}")
-    return windows, reports
+              f"{json.dumps(report)}")
+    print("graph: bench segment run: " + json.dumps(
+        {k: v for k, v in r.items() if k not in ("meters", "streams")}))
+    return [w]
 
 
 def graph_phase(device, archives):
     windows = graph_vs_eager_archives(device, archives)
     graph_vs_eager_replay(device)
     graph_profiles()
-    w, _ = bench_segment(device)
-    return windows + w
+    return windows + bench_segment(device)
 
 
 def main():
@@ -1597,6 +1588,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from cmix_tpu_torch.bench import card as _card
     from cmix_tpu_torch.engine import resolve_device
     device = resolve_device("cuda")
     # the CPU legs code a few lanes of tiny tensors, where threads only add

@@ -29,7 +29,8 @@ def test_every_module_imports_with_jax_and_cmix_tpu_blocked():
             "cmix_tpu_torch.parallel.mesh", "cmix_tpu_torch.parallel.dryrun",
             "cmix_tpu_torch.preprocess.enwik9",
             "cmix_tpu_torch.tools.make_dict",
-            "cmix_tpu_torch.tools.core_words"} <= set(mods) and len(mods) > 15
+            "cmix_tpu_torch.tools.core_words",
+            "cmix_tpu_torch.bench"} <= set(mods) and len(mods) > 15
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'jax.numpy', 'cmix_tpu'):\n"

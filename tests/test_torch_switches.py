@@ -7,9 +7,12 @@ the port needs none.  A new switch in ``cmix_tpu`` fails this file until it
 is placed.  The model gates, which the JAX engine reads from the
 environment at import (``_derive(os.environ)``), must be the port's
 ``engine.GATE_NAMES`` in order; ``GATE_ROUTES`` records where they reach
-the port from the environment and where a caller passes them.  The port's
-command lines take every option the JAX package's take, and ``--device``
-besides.  No JAX compile."""
+the port from the environment and where a caller passes them.
+``bench.py``'s switches, found by the same scan of ``bench.py``, stand in
+``BENCH_SWITCHES`` with the port function that reads them
+(``cmix_tpu_torch/bench.py`` ``bench_config``).  The port's command lines
+take every option the JAX package's take, and ``--device`` besides.  No
+JAX compile."""
 
 import ast
 import glob
@@ -37,6 +40,13 @@ SWITCHES = {
                   "plain version on a CPU tensor, with no switch and no "
                   "fallback",
 }
+
+# bench.py's switches (its config and five of its gates), each with the
+# port module and function that read it; the census scans bench.py as it
+# scans cmix_tpu/
+BENCH_SWITCHES = {name: ("cmix_tpu_torch/bench.py", "bench_config")
+                  for name in ("BDMC_L", "BPPM_CK", "BPPM_DEEP", "BBANK_CH",
+                               "BCTX4", "BDMC_N", "BLSTM_WIN")}
 
 # where the model gates reach the port: from the environment (the JAX
 # package's entry points read them there), or passed by the caller (the
@@ -166,6 +176,26 @@ def test_each_switch_is_read_where_the_census_says(name):
             assert f'("{name}",' in f.read()
     else:
         assert f'"{name}"' in body and "os.environ" in body
+
+
+def _bench_reads():
+    with open("bench.py") as f:
+        return [name for _, name in environment_reads(f.read())]
+
+
+def test_every_switch_of_bench_py_is_placed():
+    reads = _bench_reads()
+    assert "<unplaced>" not in reads and "<gates>" not in reads
+    # each read once, every one placed, and no stale entry
+    assert sorted(reads) == sorted(BENCH_SWITCHES)
+
+
+@pytest.mark.parametrize("name", sorted(BENCH_SWITCHES))
+def test_each_bench_switch_is_read_where_the_census_says(name):
+    path, func = BENCH_SWITCHES[name]
+    module = __import__(path[:-3].replace("/", "."), fromlist=["_"])
+    body = inspect.getsource(getattr(module, func))
+    assert f'environ.get("{name}",' in body
 
 
 def test_gate_names_are_the_jax_package_gates_in_order():

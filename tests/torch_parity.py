@@ -463,6 +463,38 @@ def knobs_fixture():
     return data, arc
 
 
+# ---- the bench (cmix_tpu_torch/bench.py against bench.py's drive)
+
+# RUNNER_KW's widths in 128-byte blocks of two 64-step segments, so that
+# the transcoder's pipeline runs more than one segment a group
+BENCH_KW = dict(RUNNER_KW, block_size=128, seg_size=64)
+
+
+def bench_blocks():
+    """4 blocks of bench4m.raw: the first 128 B of its 16 KiB blocks 0, 64,
+    128 and 192 (text, word lists, ELF and source fragments)."""
+    from cmix_tpu_torch import bench
+    raw = np.frombuffer(bench.corpus(), np.uint8).reshape(256, -1)
+    return raw[::64, :BENCH_KW["block_size"]].tobytes()
+
+
+def jax_bench_encode(data, env):
+    """(out, out_len) of ``cmix_tpu``'s transcoder on ``data`` at BENCH_KW
+    with ``env``'s gates, driven as bench.py drives it (``get_transcoder``,
+    ``_group_state``, ``_split_blocks``; one coding group)."""
+    from cmix_tpu import engine as je
+    with jax_runner_gates(env) as jr:
+        cfg = je.EngineConfig(**BENCH_KW)
+        blocks = jr._split_blocks(data, cfg.block_size)
+        b = blocks.shape[0]
+        sh, pb = jr._group_state(cfg, b)
+        _, out, out_len = jr.get_transcoder(cfg)(
+            sh, pb, jnp.asarray(blocks),
+            jnp.zeros((b, cfg.comp_size), dtype=jnp.uint8),
+            jnp.int32(je.MODE_ENCODE))
+        return np.asarray(out), np.asarray(out_len)
+
+
 if __name__ == "__main__" and sys.argv[1:] == ["--write-knobs-fixture"]:
     # python tests/torch_parity.py --write-knobs-fixture: (re)write the
     # JAX package's PORT=1 archive of the gated fixture under KNOBS
