@@ -26,11 +26,15 @@ without one.  Phases, each of which raises on failure:
    prefix of ``testdata/text100k.raw`` (size and block size cut, printed),
    exact round trip, launch counts > 0 in both directions, a second encode
    byte-identical, and a small-width input coded on the CPU too (archive
-   sizes must agree within 2%);
+   sizes must agree within 2%); then the same text at LSTM horizon 8 (the
+   CLI's above 256 KiB of input): exact round trip, identical re-encode,
+   launches > 0 both ways, horizon 8 in the header;
 5. the portable profile (PORT=1) across devices: the JAX package's
    committed archive ``testdata/portable.tcmx`` decodes exactly on the
    card, and the card's and the CPU's encodes of its input are both
    byte-identical to it; the card's archive decodes exactly on the CPU;
+   the same for its archive at LSTM horizon 8,
+   ``testdata/portable_h8.tcmx``;
 6. the portable profile at the CLI widths on a text prefix: exact round
    trip, identical re-encode, launch counts > 0 both ways, and the archive
    byte-identical to the JAX package's CPU archive (by its sha256);
@@ -95,10 +99,12 @@ without one.  Phases, each of which raises on failure:
 13. ms per byte step as the transcoder runs it (one segment after one of
     warm-up), through the captured graph and through the eager step: the
     bench speed profile at B=256 and B=1 and bench widths, and the default
-    and portable profiles at B=16 and B=256, CLI widths; then through the
-    graph at B=256 and CLI widths with and without the gated path's
-    mechanisms, each profile, and under LEAN and KNOBS: wall, device busy,
-    idle share and kernels per step (``utils/profiling.py``);
+    and portable profiles at B=16 and B=256, CLI widths, and the default
+    profile through the graph at B=64 (the CLI's group on a 4 MiB file)
+    and horizons 4 and 8; then through the graph at B=256 and CLI widths
+    with and without the gated path's mechanisms, each profile, and under
+    LEAN and KNOBS: wall, device busy, idle share and kernels per step
+    (``utils/profiling.py``);
 14. the graph (``engine.make_segment_fn``: one byte step captured as a
     CUDA graph and replayed, the default on the card, so phases 4-11 ran
     through it): the main path's archives of phases 4 and 6 (fast and
@@ -131,6 +137,7 @@ prints its seconds.
 import hashlib
 import json
 import os
+import struct
 import sys
 import time
 
@@ -176,6 +183,11 @@ PORT_SMALL = dict(block_size=256, seg_size=256, tbits=12, mbits=12,
                   ibits=10, pbits=12, lstm_hidden=32, lstm_horizon=4,
                   dmc_nodes=4096)
 PORT_BATCH = 8
+# the same input and widths at LSTM horizon 8, the CLI's above 256 KiB of
+# input (tests/torch_parity.py --write-h8-fixture writes it,
+# tests/test_torch_port_h8.py holds both packages to it)
+PORT_H8_ARCHIVE = os.path.join(ROOT, "testdata", "portable_h8.tcmx")
+PORT_H8_SMALL = dict(PORT_SMALL, lstm_horizon=8)
 # the routed fixture (tests/torch_parity.py --write-routed-fixture): x86
 # code, a 24-bit BMP, a WAV and a baseline JPEG; the JAX package's PORT=1
 # archive of it at ROUTED_SMALL's widths in one group of ROUTED_BATCH
@@ -253,9 +265,9 @@ RESUME_KIB, RESUME_BATCH = 2, 4
 # one's), then one NCCL rank through the graph
 SHARD_LANES, SHARD_BLOCK = 4, 128
 SHARD_SIZE_TOL = 0.01
-# the runner CLI's widths (tbits 18, LSTM 256, horizon auto = 4 under 256
-# KiB, 16384 DMC nodes; mbits 20, ibits 16, pbits 20 and 2 LSTM layers are
-# the EngineConfig defaults)
+# the runner CLI's widths (tbits 18, LSTM 256, horizon auto = 4 up to 256
+# KiB, 8 above, ``_cli_cfg``'s ``horizon``; 16384 DMC nodes; mbits 20,
+# ibits 16, pbits 20 and 2 LSTM layers are the EngineConfig defaults)
 CLI_WIDTHS = dict(tbits=18, lstm_hidden=256, lstm_horizon=4,
                   dmc_nodes=16384)
 
@@ -315,9 +327,10 @@ def _device_ms(fns, reps):
                        f"({enqueue * 1e3:.3f} ms)")
 
 
-def _cli_cfg(block):
+def _cli_cfg(block, horizon=4):
     from cmix_tpu_torch.engine import EngineConfig
-    return EngineConfig(block_size=block, **CLI_WIDTHS)
+    return EngineConfig(block_size=block, **dict(CLI_WIDTHS,
+                                                 lstm_horizon=horizon))
 
 
 def _text(kib):
@@ -709,6 +722,22 @@ def main_path(device):
           f"archive {len(a_gpu)} B, cpu {len(a_cpu)} B ({gap:+.4%}), gpu "
           "round trip exact")
     return windows + [w], (data, _cli_cfg(MAIN_BLOCK), None, arc)
+
+
+def main_path_h8(device):
+    """The fast profile through the runner at CLI widths and LSTM horizon
+    8 (the CLI's above 256 KiB of input) on the main path's text."""
+    from cmix_tpu_torch import runner
+    data = _text(MAIN_KIB)
+    print(f"main path, horizon 8: {len(data)} bytes of text100k.raw, block "
+          f"size cut 65536 -> {MAIN_BLOCK}, CLI widths, default gates")
+    windows, arc = _round_trip("main path, horizon 8", data,
+                               _cli_cfg(MAIN_BLOCK, 8), device)
+    horizon = struct.unpack(runner._HDR, arc[4:4 + runner._HDR_LEN])[10]
+    if horizon != 8:
+        raise AssertionError(f"main path, horizon 8: the header's horizon is "
+                             f"{horizon}")
+    return windows
 
 
 def portable_cross_device(device, fixture=PORT_FIXTURE, archive=PORT_ARCHIVE,
@@ -1426,6 +1455,11 @@ def step_times(device):
             for graph in (True, False):
                 step_ms(device, f"{label}, CLI widths", env, cli, B,
                         STEP_STEPS, graph)
+    # the lanes of the CLI's whole run on a 4 MiB file (64 blocks of 64 KiB
+    # in one group), at the horizon it picks there (8) and at 4
+    for horizon in (4, 8):
+        step_ms(device, f"fast profile, default gates, CLI widths, horizon "
+                f"{horizon}", {}, _cli_cfg(16384, horizon), 64, STEP_STEPS)
 
 
 class Eager:
@@ -1609,7 +1643,10 @@ def main():
     res = phase("kernels", check_dmc_kernels, device)
     phase("large pools", large_pools, device)
     windows, main_arc = phase("main path", main_path, device)
+    windows += phase("main path, horizon 8", main_path_h8, device)
     windows += phase("portable fixture", portable_cross_device, device)
+    windows += phase("portable fixture, horizon 8", portable_cross_device,
+                     device, PORT_FIXTURE, PORT_H8_ARCHIVE, PORT_H8_SMALL)
     w, port_arc = phase("portable path", portable_cli, device)
     windows += w
     routed = phase("routed path", routed_path, device)

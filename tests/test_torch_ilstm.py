@@ -1,6 +1,7 @@
 """The port's integer LSTM (PORT profile) against cmix_tpu.mixer.ilstm:
 the same initial weights, and one shared byte update from identical
-state, exact, with plain SGD and with the integer Adam (ILSTM_ADAM)."""
+state, exact, with plain SGD and with the integer Adam (ILSTM_ADAM), at
+the BPTT windows W the CLI picks (4 up to 256 KiB of input, else 8)."""
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +14,8 @@ from cmix_tpu.mixer import ilstm as jil
 from cmix_tpu_torch.mixer import ilstm as til
 
 CPU = torch.device("cpu")
-B, H, W = 4, 32, 4
+B, H = 4, 32
+WINDOWS = [4, 8]
 
 
 def _np(tree):
@@ -24,8 +26,9 @@ def _t(tree):
     return {k: torch.as_tensor(np.array(v)) for k, v in tree.items()}
 
 
+@pytest.mark.parametrize("W", WINDOWS)
 @pytest.mark.parametrize("adam", [False, True])
-def test_init_is_identical(adam):
+def test_init_is_identical(adam, W):
     sh_j = _np(jil.init_ilstm_shared(jil.ILstmConfig(hidden=H, horizon=W,
                                                      adam=adam)))
     sh_t = til.init_ilstm_shared(til.ILstmConfig(hidden=H, horizon=W,
@@ -47,8 +50,9 @@ def test_hidden_above_256_is_refused():
         til.ILstmConfig(hidden=512)
 
 
+@pytest.mark.parametrize("W", WINDOWS)
 @pytest.mark.parametrize("adam", [False, True])
-def test_one_update_from_identical_state(adam):
+def test_one_update_from_identical_state(adam, W):
     kw = dict(hidden=H, horizon=W, adam=adam, lr_wx=192 * 3, lr_wh=96 * 3,
               lr_wo=96 * 3, lr_b=48 * 3, alr_wx=40 * 3, alr_wh=20 * 3,
               alr_wo=20 * 3, alr_b=10 * 3)

@@ -46,14 +46,16 @@ def test_threefry_split_matches_jax():
                               jax.random.split(key, 4))))
 
 
-def test_byte_update_matches_from_identical_state():
-    """One Adam step over a 4-byte BPTT window from identical state.
-    f32 tolerances: the GEMM sum order differs from XLA's (CPU), so
-    activations agree to ~1e-6; Adam's normalised step magnifies tiny
-    gradient differences where the second moment is small."""
+@pytest.mark.parametrize("horizon", [4, 8])
+def test_byte_update_matches_from_identical_state(horizon):
+    """One Adam step over a ``horizon``-byte BPTT window from identical
+    state (8 is the CLI's horizon above 256 KiB; the 12 warm-up bytes fill
+    either ring).  f32 tolerances: the GEMM sum order differs from XLA's
+    (CPU), so activations agree to ~1e-6; Adam's normalised step magnifies
+    tiny gradient differences where the second moment is small."""
     B = 4
-    cj = jlstm.LstmConfig(hidden=32, horizon=4)
-    ct = lstm.LstmConfig(hidden=32, horizon=4)
+    cj = jlstm.LstmConfig(hidden=32, horizon=horizon)
+    ct = lstm.LstmConfig(hidden=32, horizon=horizon)
     sh = jlstm.init_lstm_shared(cj)
     pb = jax.tree_util.tree_map(lambda x: jnp.tile(x[None], (B,) + (1,)
                                                    * x.ndim),

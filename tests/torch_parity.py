@@ -225,21 +225,23 @@ RUNNER_KW = dict(block_size=64, seg_size=64, tbits=12, mbits=12, ibits=10,
 SIZE_TOL = 0.01
 
 
-def check_runner_against_jax(env):
+def check_runner_against_jax(env, horizon=4):
     """compress 5 text blocks with both packages at exec batch 3 (the
-    second group padded with a dummy lane) -> the same header, gate record
-    and length-table flags, coded size within SIZE_TOL; the port's archive
-    decodes exactly.  Returns the relative size gap."""
+    second group padded with a dummy lane), RUNNER_KW's widths at LSTM
+    horizon ``horizon`` -> the same header, gate record and length-table
+    flags, coded size within SIZE_TOL; the port's archive decodes exactly.
+    Returns the relative size gap."""
     from cmix_tpu import engine as je
     from cmix_tpu import runner as jr
     from cmix_tpu_torch import engine as te
     from cmix_tpu_torch import runner as tr
+    kw = dict(RUNNER_KW, lstm_horizon=horizon)
     with open("testdata/text100k.raw", "rb") as f:
         data = f.read()[1000:1320]
     with jax_runner_gates(env):
-        aj = jr.compress(data, je.EngineConfig(**RUNNER_KW), max_batch=3)
-    at = tr.compress(data, te.EngineConfig(**RUNNER_KW), max_batch=3,
-                     gates=env, device="cpu")
+        aj = jr.compress(data, je.EngineConfig(**kw), max_batch=3)
+    at = tr.compress(data, te.EngineConfig(**kw), max_batch=3, gates=env,
+                     device="cpu")
     off = 4 + tr._HDR_LEN
     glen = struct.unpack("<H", at[off:off + 2])[0]
     end = off + 2 + glen
@@ -292,17 +294,25 @@ def jax_runner_gates(env):
         jr._TRANSCODER_CACHE.clear()
 
 
-def port_fixture():
-    """(input bytes, the JAX package's PORT=1 archive of it) for the
-    committed fixture that chip_smoke.py decodes and re-encodes."""
-    import chip_smoke
+def jax_port_archive(data, small, batch, decode=False):
+    """The JAX package's PORT=1 archive of ``data`` at ``small``'s widths
+    in groups of ``batch``, and (``decode``) its decode of that archive in
+    the same compile (else None)."""
     from cmix_tpu import engine as je
+    with jax_runner_gates({"PORT": 1}) as jr:
+        arc = jr.compress(data, je.EngineConfig(**small), max_batch=batch)
+        return arc, jr.decompress(arc) if decode else None
+
+
+def port_fixture(small=None):
+    """(input bytes, the JAX package's PORT=1 archive of it) for the
+    committed fixture that chip_smoke.py decodes and re-encodes, at
+    ``small``'s widths (``chip_smoke.PORT_SMALL`` by default)."""
+    import chip_smoke
     with open(chip_smoke.PORT_FIXTURE, "rb") as f:
         data = f.read()
-    with jax_runner_gates({"PORT": 1}) as jr:
-        arc = jr.compress(data, je.EngineConfig(**chip_smoke.PORT_SMALL),
-                          max_batch=chip_smoke.PORT_BATCH)
-    return data, arc
+    return data, jax_port_archive(data, small or chip_smoke.PORT_SMALL,
+                                  chip_smoke.PORT_BATCH)[0]
 
 
 # ---- the routed fixture: x86 code, a 24-bit BMP, a WAV and a baseline JPEG
@@ -543,6 +553,14 @@ elif __name__ == "__main__" and sys.argv[1:] == ["--write-fixture"]:
     with open(chip_smoke.PORT_ARCHIVE, "wb") as f:
         f.write(arc)
     print(f"{chip_smoke.PORT_ARCHIVE}: {len(arc)} bytes")
+elif __name__ == "__main__" and sys.argv[1:] == ["--write-h8-fixture"]:
+    # python tests/torch_parity.py --write-h8-fixture: (re)write the
+    # portable fixture's archive at LSTM horizon 8 with the JAX package
+    import chip_smoke
+    _, arc = port_fixture(chip_smoke.PORT_H8_SMALL)
+    with open(chip_smoke.PORT_H8_ARCHIVE, "wb") as f:
+        f.write(arc)
+    print(f"{chip_smoke.PORT_H8_ARCHIVE}: {len(arc)} bytes")
 elif __name__ == "__main__":
     # python tests/torch_parity.py [nbytes] [block]: the archive size gap
     # between the port and the JAX package on the CPU, both gate sets
