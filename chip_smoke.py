@@ -103,7 +103,8 @@ without one.  Phases, each of which raises on failure:
     profile through the graph at B=64 (the CLI's group on a 4 MiB file)
     and horizons 4 and 8; then through the graph at B=256 and CLI widths
     with and without the gated path's mechanisms, each profile, and under
-    LEAN and KNOBS: wall, device busy, idle share and kernels per step
+    LEAN and KNOBS: wall, device busy, the median replay and its parts
+    (the device's events), and kernels per step
     (``utils/profiling.py``);
 14. the graph (``engine.make_segment_fn``: one byte step captured as a
     CUDA graph and replayed, the default on the card, so phases 4-11 ran
@@ -113,8 +114,9 @@ without one.  Phases, each of which raises on failure:
     thus still the JAX package's); a dictionary replay at B=1
     through the graph and the eager step in both profiles, the states
     equal (integer leaves exact, floats within 2e-5); wall ms (untraced
-    and traced), device busy ms and idle share per step, graph and eager,
-    at bench widths and gates, B=256 and B=1 (``utils/profiling.py``);
+    and traced), device busy ms and the graph's median replay ms per
+    step, graph and eager, at bench widths and gates, B=256 and B=1
+    (``utils/profiling.py``);
     and the port's bench (``cmix_tpu_torch/bench.py`` ``run``) on one
     segment (2048 steps x 256 lanes of bench4m.raw): a first encode, the
     timed encode (its streams equal to the first's) and the timed decode
@@ -1272,9 +1274,9 @@ def sharded_phase(device):
 
 
 def gated_profiles():
-    """ms per graphed byte step at B=256 and CLI widths, device busy, idle
-    share and kernels per step, with and without the mechanisms, in both
-    profiles (``utils/profiling.py``)."""
+    """ms per graphed byte step at B=256 and CLI widths, device busy, the
+    median replay and its parts, and kernels per step, with and without
+    the mechanisms, in both profiles (``utils/profiling.py``)."""
     from cmix_tpu_torch.utils import profiling
     rows = {}
     for gates in ("default", "gated", "portable", "gated-portable", "lean",
@@ -1284,8 +1286,9 @@ def gated_profiles():
         print(f"gated: profile, CLI widths, B=256, graph, gates {gates}: wall"
               f" {r['wall_ms_per_step']:.3f} ms/step "
               f"({r['traced_wall_ms_per_step']:.3f} traced), device busy "
-              f"{r['device_busy_ms_per_step']:.3f} ms/step, idle share "
-              f"{r['device_idle_share']:.4f}, device kernels/step "
+              f"{r['device_busy_ms_per_step']:.3f} ms/step, replay "
+              f"{r['replay_ms']} ms (median), parts {r['part_ms']}, "
+              f"device kernels/step "
               f"{r['device_kernels_per_step']:.2f}; dmc_fused "
               f"{r['dmc_kernels']['dmc_fused_kernel']}; top kernels "
               f"{r['top_device_kernels'][:4]}")
@@ -1546,8 +1549,9 @@ def graph_vs_eager_replay(device):
 
 
 def graph_profiles():
-    """Wall ms, device busy ms and idle share per step, graph and eager, at
-    bench widths and gates, B=256 and B=1 (``utils/profiling.py``)."""
+    """Wall ms, device busy ms and the median replay ms per step, graph
+    and eager, at bench widths and gates, B=256 and B=1
+    (``utils/profiling.py``)."""
     from cmix_tpu_torch.utils import profiling
     rows = []
     for batch in (256, 1):
@@ -1558,7 +1562,8 @@ def graph_profiles():
                   f"{r['step']}: wall {r['wall_ms_per_step']:.3f} ms/step "
                   f"({r['traced_wall_ms_per_step']:.3f} traced), "
                   f"device busy {r['device_busy_ms_per_step']:.3f} ms/step, "
-                  f"idle share {r['device_idle_share']:.4f}, host calls/step: "
+                  f"replay {r['replay_ms']} ms (median, graph only), "
+                  f"host calls/step: "
                   f"aten {r['aten_calls_per_step']:.2f}, launches "
                   f"{r['kernel_launches_per_step']:.2f}; device kernels/step "
                   f"{r['device_kernels_per_step']:.2f}; dmc_fused "

@@ -2438,7 +2438,8 @@ def _aux_writes_b(cfg, g, sh, pb, byte, t, ind_key_prev, ind_prev_val,
 _AUX_NOT_LANES = ("w_const", "w_level", "dmc_walk")
 
 
-def make_byte_step(cfg: EngineConfig, g: Gates, device, comm=None):
+def make_byte_step(cfg: EngineConfig, g: Gates, device, comm=None,
+                   part=None):
     """-> byte_step(sh, pb, cd, comp, inp_byte_b, t, mode) returning
     (sh, pb, cd, e32 (B, 8), c32 (B,)).  State dicts are updated in
     place where that saves a copy (some leaves in place, others rebound to
@@ -2453,8 +2454,13 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device, comm=None):
     LSTM's) run on every lane's all-gathered inputs, so each replica gets
     the unsharded step's update; the arena's writes are all-gathered too.
     Without ``comm`` the step is the unsharded one, operator for
-    operator."""
+    operator.
+
+    ``part`` (``_PartTimer``): called with a part's name (``PARTS``) where
+    the coder, update, state and lstm parts begin; the step's caller marks
+    predict's start and copyback's."""
     C = _Consts(g, device)
+    part = part or _no_part
     imask = (1 << cfg.ibits) - 1
     lcfg = _lstm_cfg(cfg, g)
     lstm_update = (ilstm_shared_byte_update if g.port
@@ -2489,6 +2495,7 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device, comm=None):
                                torch.where(vf == 2, 65472, p16_tree))
 
         # ---- the only sequential part: 8 coder steps down the tree
+        part("coder")
         byte_acc = torch.ones(B, dtype=torch.int64, device=device)
         inp = inp_byte_b.long()
         emits = []
@@ -2502,6 +2509,7 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device, comm=None):
             byte_acc = byte_acc * 2 + bit
         byte = byte_acc & 255
 
+        part("update")
         if comm is None:
             sh = _update_tree_b(cfg, g, C, sh, aux, byte, t)
         else:
@@ -2516,6 +2524,7 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device, comm=None):
             lerr = (byte.float() - 128.0) * (1.0 / 128.0) - lms["pred"]
             pb["lms_w"] = pb["lms_w"] + LMS_MU * lerr[:, None] * lms["xs"]
             pb["lms_err"] = 0.98 * pb["lms_err"] + 0.02 * lerr.abs()
+        part("state")
         pb["hist"].index_copy_(1, t.view(1), byte.to(torch.uint8)[:, None])
         if comm is not None:
             comm.hist.index_copy_(1, t.view(1),
@@ -2556,6 +2565,7 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device, comm=None):
                                ind_prev_val, comm)
         pb["ind_val"] = _rows(sh, "aux_tbl", ind_off[None, :]
                               + ind_keys(pb["ctx"]), comm=comm).long() & M32
+        part("lstm")
         if cfg.lstm_hidden and comm is None:
             sh["lstm"], pb["lstm"] = lstm_update(lcfg, sh["lstm"],
                                                  pb["lstm"], byte)
@@ -2569,6 +2579,38 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device, comm=None):
 
 
 # ------------------------------------------------------------ segment loop
+
+# the byte step's parts, in the order they run (PERF.md §3): the tree's
+# prediction, the 8 coder steps, the shared tables' update, the per-lane
+# state, the LSTM's update, and the static step's copy-back and row writes
+PARTS = ("predict", "coder", "update", "state", "lstm", "copyback")
+
+
+def _no_part(name):
+    """A part mark where nothing times the step's parts."""
+
+
+class _PartTimer:
+    """The step's part marks as timing events in its CUDA graph: while
+    ``armed`` (the capture) each mark records an external timing event,
+    which the graph keeps as an event node and re-records on every
+    replay; ``None`` marks the end of the last part.  ``ms()`` reads the
+    parts of the last replay (the stream idle)."""
+
+    def __init__(self):
+        self.armed = False
+        self.marks = []
+
+    def __call__(self, name):
+        if self.armed:
+            ev = torch.cuda.Event(enable_timing=True, external=True)
+            ev.record()
+            self.marks.append((name, ev))
+
+    def ms(self):
+        """{part: device ms} of the last replay."""
+        return {a[0]: a[1].elapsed_time(b[1])
+                for a, b in zip(self.marks, self.marks[1:])}
 
 
 def _tree_copy(tree):
@@ -2603,11 +2645,13 @@ def _rebound(static, new, path=""):
     return out
 
 
-def make_static_step(cfg: EngineConfig, g: Gates, device, comm=None):
+def make_static_step(cfg: EngineConfig, g: Gates, device, comm=None,
+                     part=None):
     """-> body(st): one byte step on static buffers, the callable a CUDA
     graph captures (the JAX package's scan body); with ``comm`` a sharded
     rank's step (``make_byte_step``), whose every-lane history
-    ``comm.hist`` is static per group width.
+    ``comm.hist`` is static per group width; ``part`` marks the step's
+    parts (``PARTS``, ``_PartTimer``).
 
     ``st`` holds the state trees ``sh``, ``pb``, ``cd``, the group's
     ``comp`` (B, C) uint8 and ``mode`` (B,), the segment's input rows
@@ -2617,16 +2661,19 @@ def make_static_step(cfg: EngineConfig, g: Gates, device, comm=None):
     leaf the step rebound back into its static leaf, writes the row's
     outputs and advances t modulo the block, so every tensor of ``st``
     keeps its storage from step to step."""
-    step = make_byte_step(cfg, g, device, comm)
+    part = part or _no_part
+    step = make_byte_step(cfg, g, device, comm, part)
     row_mask, t_mask = cfg.seg_size - 1, cfg.block_size - 1
 
     def body(st):
+        part("predict")
         t = st["t"]
         row = (t & row_mask).view(1)
         trees = {k: _tree_copy(st[k]) for k in ("sh", "pb", "cd")}
         sh, pb, cd, e32, c32 = step(
             trees["sh"], trees["pb"], trees["cd"], st["comp"],
             st["inp"].index_select(0, row)[0], t, st["mode"])
+        part("copyback")
         pairs = (_rebound(st["sh"], sh) + _rebound(st["pb"], pb)
                  + _rebound(st["cd"], cd))
         # a new leaf that lies in a static leaf's storage is read before
@@ -2638,6 +2685,7 @@ def make_static_step(cfg: EngineConfig, g: Gates, device, comm=None):
         st["e32"].index_copy_(0, row, e32[None])
         st["c32"].index_copy_(0, row, c32[None])
         t.copy_((t + 1) & t_mask)
+        part(None)
 
     return body
 
@@ -2650,14 +2698,25 @@ class _Segments:
     later group of the same width copies its state into the buffers.
     Elsewhere, or with ``graph=False``, the eager step runs in a Python
     loop with a device t.  A sharded rank's step (``comm``) runs either
-    way, its collectives inside the graph."""
+    way, its collectives inside the graph.
+
+    ``timed`` (the graph only): a timing event on the stream before a
+    segment's first replay and one after each replay, from two rings of
+    seg_size + 1 events that alternate between segments (``ring``: the
+    last segment's; ``replay_ms``), and the step's parts as event nodes
+    in the graph (``timer``: a ``_PartTimer``)."""
 
     def __init__(self, cfg: EngineConfig, g: Gates, device, graph,
-                 comm=None):
+                 comm=None, timed=False):
         self.cfg, self.device, self.comm = cfg, device, comm
         self.graph = graph and device.type == "cuda"
+        self.timer = _PartTimer() if timed and self.graph else None
+        self._rings = [[torch.cuda.Event(enable_timing=True)
+                        for _ in range(cfg.seg_size + 1)]
+                       for _ in range(2)] if self.timer else None
+        self.ring = None
         if self.graph:
-            self.body = make_static_step(cfg, g, device, comm)
+            self.body = make_static_step(cfg, g, device, comm, self.timer)
         else:
             self.step = make_byte_step(cfg, g, device, comm)
             self.ts = torch.arange(cfg.block_size, device=device)
@@ -2735,11 +2794,18 @@ class _Segments:
             comm.hist.copy_(hist)
             warm_counts = dict(comm.counts)
         self._g = torch.cuda.CUDAGraph()
+        if self.timer:
+            self.timer.marks, self.timer.armed = [], True
         # thread-local: another thread's CUDA calls (a process group's
         # watchdog querying the warm-up's collectives) stay legal while
         # this thread captures
-        with torch.cuda.graph(self._g, capture_error_mode="thread_local"):
-            self.body(self.st)
+        try:
+            with torch.cuda.graph(self._g,
+                                  capture_error_mode="thread_local"):
+                self.body(self.st)
+        finally:
+            if self.timer:
+                self.timer.armed = False
         now = dmc.launch_counts()
         self.per_replay = [a - b for a, b in zip(now, warmed)]
         dmc.add_launches([a - b for a, b in zip(now, before)], -1)
@@ -2756,8 +2822,16 @@ class _Segments:
         S = self.cfg.seg_size
         if self.graph:
             self.st["inp"].copy_(inp_seg)
-            for _ in range(S):
-                self._g.replay()
+            if self._rings is None:
+                for _ in range(S):
+                    self._g.replay()
+            else:
+                self._rings.reverse()
+                self.ring = self._rings[0]
+                self.ring[0].record()
+                for ev in self.ring[1:]:
+                    self._g.replay()
+                    ev.record()
             dmc.add_launches(self.per_replay, S)
             if self.comm is not None:
                 for k, v in self.comm_per_replay.items():
@@ -2781,9 +2855,16 @@ class _Segments:
         """(sh, pb, cd) after the segments run so far."""
         return self.st["sh"], self.st["pb"], self.st["cd"]
 
+    @staticmethod
+    def replay_ms(ring):
+        """Device ms of each replay of a segment run with ``ring`` (its
+        events complete): every replay follows the last on the stream,
+        so each interval is one replay's own time."""
+        return [a.elapsed_time(b) for a, b in zip(ring, ring[1:])]
+
 
 def make_segment_fn(cfg: EngineConfig, g: Gates, device, graph=True,
-                    comm=None):
+                    comm=None, timed=False):
     """The port's ``jax.jit`` of the JAX package's segment scan: an object
     whose ``start(sh, pb, cd, comp, mode)`` begins a coding group and whose
     ``run(inp_seg)`` enqueues one segment of seg_size byte steps on its
@@ -2794,9 +2875,10 @@ def make_segment_fn(cfg: EngineConfig, g: Gates, device, graph=True,
     CPU.  ``comm`` makes it a sharded rank's (``make_byte_step``): its
     collectives are captured with the step under NCCL or without a process
     group; Gloo's cannot be, and a graph asked for there raises
-    ValueError."""
+    ValueError.  ``timed`` times each replay and the step's parts on the
+    device (``_Segments``)."""
     _check_capturable(graph, comm)
-    return _Segments(cfg, g, device, graph, comm)
+    return _Segments(cfg, g, device, graph, comm, timed)
 
 
 def _check_capturable(graph, comm):
@@ -2853,7 +2935,10 @@ def make_transcoder(cfg: EngineConfig, g: Gates, device, graph=True,
     ``utils.profiling.Meter`` (phases ``compile``: the graph's warm-up
     and capture, at the first group of a width; ``device``: the segments,
     a later group's copy into the graph, and the waits on the device;
-    ``host``: the compaction); progress: a callable of the bytes done.
+    ``host``: the compaction; the spans ``transcode`` and its children,
+    and with the graph each replay's device ms and the group's last
+    replay's parts, from a segment function built ``timed``: see
+    ``utils/profiling.py``); progress: a callable of the bytes done.
     ``comm``: a sharded rank's (``parallel/mesh.py``; its lanes, through
     the graph under NCCL or without a process group, eagerly under Gloo,
     where ``graph`` raises ValueError).  ``transcode.state()`` is (sh, pb,
@@ -2867,16 +2952,22 @@ def make_transcoder(cfg: EngineConfig, g: Gates, device, graph=True,
     cuda = device.type == "cuda"
 
     def transcode(sh, pb, inp, comp, mode, meter=None, progress=None):
-        ph = meter.phase if meter else (lambda _: contextlib.nullcontext())
+        with (meter.span if meter else no_span)("transcode"):
+            return _transcode(sh, pb, inp, comp, mode, meter, progress)
+
+    def _transcode(sh, pb, inp, comp, mode, meter, progress):
+        sp = meter.span if meter else no_span
         b = int(inp.shape[0])
         parts = [[] for _ in range(b)]
 
         def drain(pend):
-            ev, e32, c32 = pend
-            with ph("device"):
+            ev, e32, c32, ring = pend
+            with sp("wait", "device"):
                 if ev is not None:
                     ev.synchronize()
-            with ph("host"):
+                if ring is not None:
+                    meter.add_replays(seg.replay_ms(ring))
+            with sp("compact", "host"):
                 seg_out, seg_len = compact(e32.numpy(), c32.numpy())
                 for i in range(b):
                     parts[i].append(seg_out[i, :seg_len[i]].tobytes())
@@ -2894,20 +2985,23 @@ def make_transcoder(cfg: EngineConfig, g: Gates, device, graph=True,
             cd["rptr"] = torch.where(mode == MODE_DECODE, 4, 0)
             inp_T = torch.as_tensor(np.ascontiguousarray(
                 np.asarray(inp).T), device=device)
-            if b not in segs:
-                segs[b] = make_segment_fn(cfg, g, device, graph, comm)
-            seg = segs[b]
+            key = (b, meter is not None)
+            if key not in segs:
+                segs[key] = make_segment_fn(cfg, g, device, graph, comm,
+                                            meter is not None)
+            seg = segs[key]
             last[:] = [seg]
             host = [tuple(torch.empty(shape, dtype=torch.int64,
                                       pin_memory=True)
                           for shape in ((S, b, 8), (S, b)))
                     for _ in range(2)] if cuda else None
-            with ph("device" if seg.ready else "compile"):
+            with (sp("copyin", "device") if seg.ready
+                  else sp("capture", "compile")):
                 seg.start(sh, pb, cd, comp, mode)
             pending = None
             for si in range(cfg.block_size // S):
                 lo = si * S
-                with ph("device"):
+                with sp("enqueue", "device"):
                     e32, c32 = seg.run(inp_T[lo:lo + S])
                     if cuda:
                         he, hc = host[si % 2]
@@ -2915,9 +3009,9 @@ def make_transcoder(cfg: EngineConfig, g: Gates, device, graph=True,
                         hc.copy_(c32, non_blocking=True)
                         ev = torch.cuda.Event()
                         ev.record()
-                        done = (ev, he, hc)
+                        done = (ev, he, hc, seg.ring)
                     else:
-                        done = (None, e32, c32)
+                        done = (None, e32, c32, None)
                 if pending is not None:
                     drain(pending)
                 pending = done
@@ -2926,9 +3020,12 @@ def make_transcoder(cfg: EngineConfig, g: Gates, device, graph=True,
                 if progress:
                     progress((si + 1) * S * b)
             drain(pending)
-            _, pb, cd = seg.state()
-            x1 = cd["x1"].cpu().numpy()
-            hist = pb["hist"].cpu().numpy()
+            with sp("readback"):
+                _, pb, cd = seg.state()
+                x1 = cd["x1"].cpu().numpy()
+                hist = pb["hist"].cpu().numpy()
+                if seg.timer is not None:
+                    meter.add_parts(seg.timer.ms())
         out = np.zeros((b, cfg.comp_size), dtype=np.uint8)
         out_len = np.zeros(b, dtype=np.int64)
         for i in range(b):
@@ -2941,6 +3038,11 @@ def make_transcoder(cfg: EngineConfig, g: Gates, device, graph=True,
 
     transcode.state = lambda: last[0].state()
     return transcode
+
+
+def no_span(name, phase=None):
+    """``Meter.span``'s stand-in where no Meter is given."""
+    return contextlib.nullcontext()
 
 
 # ------------------------------------------------------------- pretraining

@@ -40,6 +40,11 @@ segment scan.
     python -m cmix_tpu_torch.runner c|d|t INPUT OUTPUT [--portable]
         [--dict PATH|auto] [--device cpu] [--resume JOURNAL] [--stats]
         [--profile DIR]
+
+``--stats`` prints the Meter's one-line JSON report on stderr;
+``--profile DIR`` writes a ``torch.profiler`` trace, ``DIR/trace.json``,
+and the Meter's spans and device times beside it, ``DIR/spans.json``
+(``utils/profiling.py``).
 """
 
 import argparse
@@ -55,7 +60,7 @@ from cmix_tpu_torch.version import FORMAT_VERSION, MAGIC
 from cmix_tpu_torch.engine import (
     GATE_NAMES, EngineConfig, FormatError, MODE_DECODE, MODE_ENCODE,
     gates_from_blob, init_perblock, init_shared, make_gates, make_transcoder,
-    resolve_device)
+    no_span, resolve_device)
 from cmix_tpu_torch.contexts.hashes import build_wrtw_tables
 from cmix_tpu_torch.preprocess import wrt
 from cmix_tpu_torch.utils.checkpoint import (
@@ -316,20 +321,33 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
     the groups it holds, and the journal goes once the archive is whole
     (``_resume_key``: a journal of anything else is ignored, whole groups
     only are kept).
-    meter: a ``utils.profiling.Meter`` the transcoder's phases feed;
+    meter: a ``utils.profiling.Meter`` the transcoder's phases feed, with
+    the call's spans (``compress`` and those under it) and device times;
     show_progress: a percentage ticker on stderr."""
+    gates = env_gates() if gates is None else gates
+    if meter is None:
+        return _compress(data, cfg, max_batch, dictionary, gates, device,
+                         resume_path, None, show_progress)
+    with meter.call("compress"):
+        return _compress(data, cfg, max_batch, dictionary, gates, device,
+                         resume_path, meter, show_progress)
+
+
+def _compress(data, cfg, max_batch, dictionary, gates, device, resume_path,
+              meter, show_progress):
+    sp = meter.span if meter else no_span
     if cfg.dmc_nodes & (cfg.dmc_nodes - 1):
         raise FormatError(f"dmc_nodes={cfg.dmc_nodes} must be 0 or a power "
                           "of two (the archive header stores its log2)")
     # the caller's JVAL is replaced by the routed one: JVAL without JPEGX
     # is no error here
-    gates = env_gates() if gates is None else gates
     g = make_gates({k: v for k, v in gates.items() if k != "JVAL"})
     dev = resolve_device(device)
     d, dict_bytes, fp, tables = (_load_dictionary(dictionary)
                                  if dictionary is not None
                                  else (None, b"", _NO_DICT, None))
-    payload, seg_meta = wrt.transform(data, d)
+    with sp("transform"):
+        payload, seg_meta = wrt.transform(data, d)
     flags = _FLAG_PRETRAIN if d is not None else 0
     # text WRT does not shrink (all text, without a dictionary) is recorded
     # as a raw segment: an input of such text and raw bytes only keeps its
@@ -339,10 +357,13 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
         payload, seg_meta = data, None
     else:
         flags |= _FLAG_WRT
-    g = make_gates(dict(g.env, **_routed_gates(seg_meta, g.port, d)))
+    with sp("route"):
+        g = make_gates(dict(g.env, **_routed_gates(seg_meta, g.port, d)))
     # after the routing: the pretrained state is the routed ensemble's
-    base = (_pretrained_base(cfg, g, dev, dict_bytes, tables)
-            if d is not None else None)
+    base = None
+    if d is not None:
+        with sp("pretrain"):
+            base = _pretrained_base(cfg, g, dev, dict_bytes, tables)
     n = cfg.block_size
     blocks = _split_blocks(payload, n)
     nb = blocks.shape[0]
@@ -366,7 +387,9 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
         if b < eb:
             batch = np.concatenate(
                 [batch, np.zeros((eb - b, n), dtype=np.uint8)], axis=0)
-        sh, pb = _group_state(cfg, g, eb, vforce, dev, fields, lo, b, base)
+        with sp("group_state"):
+            sh, pb = _group_state(cfg, g, eb, vforce, dev, fields, lo, b,
+                                  base)
         _, out, out_len = trans(sh, pb, batch,
                                 np.zeros((eb, cfg.comp_size), np.uint8),
                                 MODE_ENCODE, meter=meter,
@@ -380,17 +403,19 @@ def compress(data: bytes, cfg: EngineConfig = EngineConfig(),
                 streams.append((False, bytes(out[i, :L].tobytes())))
         if resume_path is not None:
             _resume_save(resume_path, rkey, streams)
-    blob = g.blob()
-    header = MAGIC + struct.pack(
-        _HDR, FORMAT_VERSION, flags, cfg.block_size.bit_length() - 1,
-        cfg.tbits, cfg.mbits, cfg.ibits, cfg.pbits,
-        cfg.dmc_nodes.bit_length() - 1 if cfg.dmc_nodes else 0,
-        cfg.seg_size.bit_length() - 1, cfg.lstm_layers, cfg.lstm_horizon,
-        cfg.lstm_hidden, eb, len(data), len(payload), nb, fp, vocab) \
-        + struct.pack("<H", len(blob)) + blob
-    segtbl = _seg_table(seg_meta) if flags & _FLAG_WRT else b""
-    lens = b"".join(struct.pack("<I", len(s) | (_RAW_FLAG if raw else 0))
-                    for raw, s in streams)
+    with sp("container"):
+        blob = g.blob()
+        header = MAGIC + struct.pack(
+            _HDR, FORMAT_VERSION, flags, cfg.block_size.bit_length() - 1,
+            cfg.tbits, cfg.mbits, cfg.ibits, cfg.pbits,
+            cfg.dmc_nodes.bit_length() - 1 if cfg.dmc_nodes else 0,
+            cfg.seg_size.bit_length() - 1, cfg.lstm_layers,
+            cfg.lstm_horizon, cfg.lstm_hidden, eb, len(data), len(payload),
+            nb, fp, vocab) + struct.pack("<H", len(blob)) + blob
+        segtbl = _seg_table(seg_meta) if flags & _FLAG_WRT else b""
+        lens = b"".join(struct.pack("<I", len(s) | (_RAW_FLAG if raw
+                                                     else 0))
+                        for raw, s in streams)
     if resume_path is not None:              # the archive is whole
         try:
             os.remove(resume_path)
@@ -405,58 +430,71 @@ def decompress(archive: bytes, dictionary: str = None, device="cuda",
     the ensemble and the exec batch; malformed input raises FormatError,
     and so does an archive coded with a dictionary when ``dictionary`` is
     not that file (it is ignored for an archive coded without one).
-    meter, show_progress: as for ``compress``."""
-    if len(archive) < 4 + _HDR_LEN + 2:
-        raise FormatError("truncated archive (shorter than the header)")
-    if archive[:4] != MAGIC:
-        raise FormatError("bad magic: not a TCMX archive")
-    (ver, flags, log_bs, tbits, mbits, ibits, pbits, dmc_log, log_seg,
-     lstm_layers, lstm_horizon, lstm_hidden, eb, orig_len, payload_len,
-     nb, fp, vocab) = struct.unpack(_HDR, archive[4:4 + _HDR_LEN])
-    if ver != FORMAT_VERSION:
-        raise FormatError(
-            f"archive format version {ver}; this build reads only "
-            f"{FORMAT_VERSION} (the predictor is the format)")
-    off = 4 + _HDR_LEN
-    (glen,) = struct.unpack("<H", archive[off:off + 2])
-    blob = archive[off + 2:off + 2 + glen]
-    if len(blob) != glen:
-        raise FormatError("truncated archive (gate record)")
-    off += 2 + glen
-    d = tables = None
-    if flags & _FLAG_PRETRAIN:
-        if dictionary is None:
-            raise FormatError("archive requires the dictionary it was "
-                              "compressed with (pass dictionary=...)")
-        d, dict_bytes, fp2, tables = _load_dictionary(dictionary)
-        if fp2 != fp:
-            raise FormatError("dictionary fingerprint mismatch: not the "
-                              "dictionary this archive was coded with")
-    seg_meta = None
-    if flags & _FLAG_WRT:
-        seg_meta, off = _read_seg_table(archive, off)
-    g = gates_from_blob(blob)
-    dev = resolve_device(device)
-    cfg = EngineConfig(block_size=1 << log_bs, tbits=tbits, mbits=mbits,
-                       ibits=ibits, pbits=pbits, lstm_hidden=lstm_hidden,
-                       lstm_layers=lstm_layers, lstm_horizon=lstm_horizon,
-                       dmc_nodes=(1 << dmc_log) if dmc_log else 0,
-                       seg_size=1 << log_seg)
-    if off + 4 * nb > len(archive):
-        raise FormatError("truncated archive (block length table)")
-    lens = struct.unpack("<" + "I" * nb, archive[off:off + 4 * nb])
-    off += 4 * nb
-    streams = []
-    for L in lens:
-        raw = bool(L & _RAW_FLAG)
-        L &= ~_RAW_FLAG
-        streams.append((raw, archive[off:off + L]))
-        off += L
-    if off > len(archive):
-        raise FormatError("truncated archive (block streams end at "
-                          f"{off}, archive is {len(archive)} bytes)")
-    base = (_pretrained_base(cfg, g, dev, dict_bytes, tables)
-            if d is not None else None)
+    meter, show_progress: as for ``compress`` (the call's root span is
+    ``decompress``; the gate record is parsed in its ``container`` span,
+    and ``transform`` is ``wrt.untransform``)."""
+    if meter is None:
+        return _decompress(archive, dictionary, device, None, show_progress)
+    with meter.call("decompress"):
+        return _decompress(archive, dictionary, device, meter, show_progress)
+
+
+def _decompress(archive, dictionary, device, meter, show_progress):
+    sp = meter.span if meter else no_span
+    with sp("container"):
+        if len(archive) < 4 + _HDR_LEN + 2:
+            raise FormatError("truncated archive (shorter than the header)")
+        if archive[:4] != MAGIC:
+            raise FormatError("bad magic: not a TCMX archive")
+        (ver, flags, log_bs, tbits, mbits, ibits, pbits, dmc_log, log_seg,
+         lstm_layers, lstm_horizon, lstm_hidden, eb, orig_len, payload_len,
+         nb, fp, vocab) = struct.unpack(_HDR, archive[4:4 + _HDR_LEN])
+        if ver != FORMAT_VERSION:
+            raise FormatError(
+                f"archive format version {ver}; this build reads only "
+                f"{FORMAT_VERSION} (the predictor is the format)")
+        off = 4 + _HDR_LEN
+        (glen,) = struct.unpack("<H", archive[off:off + 2])
+        blob = archive[off + 2:off + 2 + glen]
+        if len(blob) != glen:
+            raise FormatError("truncated archive (gate record)")
+        off += 2 + glen
+        d = tables = None
+        if flags & _FLAG_PRETRAIN:
+            if dictionary is None:
+                raise FormatError("archive requires the dictionary it was "
+                                  "compressed with (pass dictionary=...)")
+            d, dict_bytes, fp2, tables = _load_dictionary(dictionary)
+            if fp2 != fp:
+                raise FormatError("dictionary fingerprint mismatch: not the "
+                                  "dictionary this archive was coded with")
+        seg_meta = None
+        if flags & _FLAG_WRT:
+            seg_meta, off = _read_seg_table(archive, off)
+        g = gates_from_blob(blob)
+        dev = resolve_device(device)
+        cfg = EngineConfig(block_size=1 << log_bs, tbits=tbits, mbits=mbits,
+                           ibits=ibits, pbits=pbits, lstm_hidden=lstm_hidden,
+                           lstm_layers=lstm_layers, lstm_horizon=lstm_horizon,
+                           dmc_nodes=(1 << dmc_log) if dmc_log else 0,
+                           seg_size=1 << log_seg)
+        if off + 4 * nb > len(archive):
+            raise FormatError("truncated archive (block length table)")
+        lens = struct.unpack("<" + "I" * nb, archive[off:off + 4 * nb])
+        off += 4 * nb
+        streams = []
+        for L in lens:
+            raw = bool(L & _RAW_FLAG)
+            L &= ~_RAW_FLAG
+            streams.append((raw, archive[off:off + L]))
+            off += L
+        if off > len(archive):
+            raise FormatError("truncated archive (block streams end at "
+                              f"{off}, archive is {len(archive)} bytes)")
+    base = None
+    if d is not None:
+        with sp("pretrain"):
+            base = _pretrained_base(cfg, g, dev, dict_bytes, tables)
     n = cfg.block_size
     trans = make_transcoder(cfg, g, dev)
     vforce = _vocab_force(vocab)
@@ -474,8 +512,9 @@ def decompress(archive: bytes, dictionary: str = None, device="cuda",
             else:
                 comp[j, :len(s)] = np.frombuffer(s, dtype=np.uint8)
                 modes[j] = MODE_DECODE
-        sh, pb = _group_state(cfg, g, eb, vforce, dev, fields, lo,
-                              len(group), base)
+        with sp("group_state"):
+            sh, pb = _group_state(cfg, g, eb, vforce, dev, fields, lo,
+                                  len(group), base)
         hist, _, _ = trans(sh, pb, inp, comp, modes, meter=meter,
                            progress=_progress(ticker, lo * n,
                                               len(group) / eb))
@@ -483,7 +522,8 @@ def decompress(archive: bytes, dictionary: str = None, device="cuda",
             out_parts[lo + j] = s if raw else bytes(hist[j].tobytes())
     payload = b"".join(out_parts)[:payload_len]
     if seg_meta is not None:
-        payload = wrt.untransform(payload, seg_meta, d)
+        with sp("transform"):
+            payload = wrt.untransform(payload, seg_meta, d)
     if len(payload) != orig_len:
         raise FormatError(
             f"decoded length {len(payload)} != {orig_len} (corrupt "
@@ -524,7 +564,9 @@ def main(argv=None):
                     "them")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace (Chrome trace "
-                    "format) to DIR/trace.json")
+                    "format) to DIR/trace.json, and the call's spans and "
+                    "device times (utils/profiling.Meter) to "
+                    "DIR/spans.json")
     ap.add_argument("--stats", action="store_true",
                     help="print a JSON phase/throughput report to stderr")
     ap.add_argument("--portable", action="store_true",
@@ -547,7 +589,7 @@ def main(argv=None):
         cfg = EngineConfig(block_size=args.block_size, tbits=args.tbits,
                            lstm_hidden=args.lstm, dmc_nodes=args.dmc,
                            lstm_horizon=horizon)
-        with trace(args.profile):
+        with trace(args.profile, meter):
             out = compress(data, cfg, max_batch=args.max_batch,
                            dictionary=args.dictionary,
                            gates=gates,
@@ -568,7 +610,7 @@ def main(argv=None):
               f"{time.time() - t0:.2f} s")
         print(f"cross entropy: {bpb:.4f}")
     else:
-        with trace(args.profile):
+        with trace(args.profile, meter):
             out = decompress(data, dictionary=args.dictionary,
                              device=args.device, meter=meter,
                              show_progress=True)

@@ -3,13 +3,54 @@ and where a byte step's time goes on the GPU.
 
 Port of cmix_tpu/utils/profiling.py (``trace``, ``Meter``, ``Progress``):
 
-* ``trace(dir)``: a ``torch.profiler`` trace (CPU, and CUDA where there is
-  a card) written into ``dir`` as a Chrome trace (``--profile DIR``);
+* ``trace(dir, meter)``: a ``torch.profiler`` trace (CPU, and CUDA where
+  there is a card) written into ``dir`` as a Chrome trace, ``trace.json``,
+  and the meter's spans and counters beside it, ``spans.json``
+  (``--profile DIR``);
 * ``Meter``: per-phase wall time and bytes, the one-line JSON report
   (``--stats``) with the JAX package's keys; the transcoder waits on the
   device inside its ``device`` phase, where the JAX package's
   ``np.asarray`` blocks;
 * ``Progress``: the rate-limited percentage ticker on stderr.
+
+Beyond the JAX package's report a Meter records (none of it goes into
+the report or ``Meter.t``):
+
+* spans: ``with meter.span(name):`` records the name, the start and end
+  (``time.time_ns()``, the Unix-epoch clock on which ``torch.profiler``
+  stamps its events) and the parent span, and enters a
+  ``torch.profiler.record_function`` of the same name, so a trace taken
+  meanwhile carries the program's spans.  A span opened with no span open
+  begins a call (``Span.call``); ``meter.call(name)`` opens such a root and
+  logs the Meter in ``CALLS`` when it ends.  Each phase is a span too:
+  ``span(name, phase)`` adds its seconds to ``t[phase]``.  The spans of a
+  ``runner.compress``/``decompress`` call:
+
+      compress | decompress                      (the call, one per call)
+        container      header, segment table, length table (decode: and
+                       the gate record and dictionary check)
+        transform      wrt.transform (decode: wrt.untransform)
+        route          _routed_gates and make_gates (encode)
+        pretrain       the dictionary's pretrained base, with one
+        group_state    a coding group's initial state, per group
+        transcode      engine.make_transcoder's call, per group
+          capture      the graph's warm-up and capture (phase compile)
+          copyin       a later group copied into the graph (phase device)
+          enqueue      a segment's replays and pinned copies (device)
+          wait         the wait on a segment's copies (device)
+          compact      its compaction on the host (phase host)
+          readback     the final coder and history brought to the host
+
+* ``replay_ms``: {call: [device ms of each graph replay]}, from a timing
+  event on the stream before a segment's first replay and one after each
+  replay (``engine._Segments``), read when the segment drains;
+* ``part_ms``: {call: [{part: device ms}]}, one record a coding group: the
+  six parts of its last replay (``engine.PARTS``: predict, coder, update,
+  state, lstm, copyback), timed by event nodes captured in the graph.
+
+Both device records stay empty on the eager step.  ``CALLS`` holds the
+Meters of the last ``CALLS_KEPT`` finished ``compress``/``decompress``
+calls that were given one; nothing is written unless ``--profile`` asks.
 
 The byte-step profiler (not in the JAX package):
 
@@ -35,8 +76,9 @@ host clock (synchronised), then traces a third with CPU and CUDA
 activities (the tracer slows the host and the graph's launches, so the
 traced wall is printed apart) and prints one JSON line: wall ms per step,
 device busy ms per step (the sum of the device's kernel, copy and fill
-times on the one stream, from the trace) and the idle share (1 - busy /
-untraced wall), host operator calls and kernel launches per step,
+times on the one stream, from the trace), the graph's median replay ms
+and its six parts' ms (the timed segment's events; None on the eager
+step), host operator calls and kernel launches per step,
 kernels run on the device per step, the top operators by host time and
 the top kernels by device time, and always the two DMC kernels' launches
 and device ms per step (``dmc_kernels``, zero where the step launched
@@ -45,22 +87,29 @@ its name.
 """
 
 import argparse
+import collections
 import contextlib
 import json
 import os
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from cmix_tpu_torch import engine as E
 
+# the Meters of the last CALLS_KEPT finished compress/decompress calls
+CALLS_KEPT = 512
+CALLS = collections.deque(maxlen=CALLS_KEPT)
+
 
 @contextlib.contextmanager
-def trace(log_dir):
+def trace(log_dir, meter=None):
     """A torch.profiler trace written to ``log_dir`` as a Chrome trace
-    (``trace.json``; no-op when log_dir is falsy)."""
+    (``trace.json``), and ``meter``'s spans and counters beside it
+    (``spans.json``); a no-op when log_dir is falsy."""
     if not log_dir:
         yield
         return
@@ -71,10 +120,31 @@ def trace(log_dir):
         yield
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    if meter is not None:
+        with open(os.path.join(log_dir, "spans.json"), "w") as f:
+            json.dump(meter.export(), f)
+
+
+class Span(NamedTuple):
+    """One span: ``start_ns``/``end_ns`` on ``time.time_ns()`` (end None
+    while open), ``parent`` the index of the enclosing span in
+    ``Meter.spans`` (None for a call's root), ``call`` the call's id,
+    ``phase`` the phase its seconds count to (or None)."""
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int
+    call: int
+    phase: str = None
+
+    @property
+    def seconds(self):
+        return (self.end_ns - self.start_ns) / 1e9
 
 
 class Meter:
-    """Accumulates per-phase wall time + processed bytes.
+    """Accumulates per-phase wall time + processed bytes, and the spans and
+    device events the module's docstring lists.
 
     phases: 'compile' (the graph's warm-up and capture), 'device' (the
     segments and the waits on the device), 'host' (compaction).  Report:
@@ -85,14 +155,65 @@ class Meter:
         self.bytes = 0
         self.out_bytes = 0
         self.segments = 0
+        self.spans = []
+        self.replay_ms = {}
+        self.part_ms = {}
+        self._open = []
+        self._calls = 0
 
     @contextlib.contextmanager
-    def phase(self, name):
-        t0 = time.perf_counter()
+    def span(self, name, phase=None):
+        """Time the block as a span ``name`` inside the innermost open one
+        (a new call's root where none is open); with ``phase`` its seconds
+        are added to ``t[phase]``."""
+        parent = self._open[-1] if self._open else None
+        if parent is None:
+            call, self._calls = self._calls, self._calls + 1
+        else:
+            call = self.spans[parent].call
+        i = len(self.spans)
+        start = time.time_ns()
+        self.spans.append(Span(name, start, None, parent, call, phase))
+        self._open.append(i)
         try:
-            yield
+            with torch.profiler.record_function(name):
+                yield
         finally:
-            self.t[name] = self.t.get(name, 0.0) + time.perf_counter() - t0
+            end = time.time_ns()
+            self._open.pop()
+            self.spans[i] = self.spans[i]._replace(end_ns=end)
+            if phase is not None:
+                self.t[phase] = self.t.get(phase, 0.0) + (end - start) / 1e9
+
+    def phase(self, name):
+        return self.span(name, name)
+
+    @contextlib.contextmanager
+    def call(self, name):
+        """A call's root span; the Meter is logged in ``CALLS`` when the
+        call ends without an error."""
+        with self.span(name):
+            yield
+        CALLS.append(self)
+
+    def _call_id(self):
+        return self.spans[self._open[-1]].call if self._open else None
+
+    def add_replays(self, ms):
+        """Device ms of graph replays, in order, for the open call."""
+        self.replay_ms.setdefault(self._call_id(), []).extend(ms)
+
+    def add_parts(self, parts):
+        """{part: device ms} of a coding group's last replay."""
+        self.part_ms.setdefault(self._call_id(), []).append(parts)
+
+    def export(self):
+        """The spans and counters as one JSON-ready dict (``spans.json``)."""
+        return {"spans": [s._asdict() for s in self.spans],
+                "replay_ms": {str(k): v for k, v in self.replay_ms.items()},
+                "part_ms": {str(k): v for k, v in self.part_ms.items()},
+                "phases_s": dict(self.t), "bytes": self.bytes,
+                "out_bytes": self.out_bytes, "segments": self.segments}
 
     def add_segment(self, n_bytes):
         self.segments += 1
@@ -204,7 +325,11 @@ def profile_steps(batch=256, steps=8, gates="bench", graph=True,
     """Profile ``steps`` byte steps at ``widths`` (``WIDTHS``) as the
     transcoder runs them (one segment of ``steps`` after one of warm-up,
     timed, then one traced) -> the JSON-ready dict the module's docstring
-    lists."""
+    lists.  The graph's ``replay_ms`` (the median of the timed segment's
+    replays) and ``part_ms`` (its last replay's parts) come from the
+    device's events; the traced busy time is the tracer's, whose replays
+    run slower than untraced ones, so no idle share is formed from the
+    two."""
     dev = E.resolve_device("cuda")
     g = E.make_gates(GATE_SETS[gates])
     cfg = E.EngineConfig(block_size=16384, lstm_hidden=256, seg_size=steps,
@@ -216,7 +341,7 @@ def profile_steps(batch=256, steps=8, gates="bench", graph=True,
     pb = E.init_perblock(cfg, g, batch, dev)
     if g.lms:
         pb["blk_kind"].fill_(3)
-    seg = E.make_segment_fn(cfg, g, dev, graph)
+    seg = E.make_segment_fn(cfg, g, dev, graph, timed=True)
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
     with torch.no_grad():
@@ -232,6 +357,10 @@ def profile_steps(batch=256, steps=8, gates="bench", graph=True,
         seg.run(inp[steps:2 * steps])
         torch.cuda.synchronize()
         wall = time.time() - t0
+        replay_ms = part_ms = None
+        if seg.ring is not None:
+            replay_ms = float(np.median(seg.replay_ms(seg.ring)))
+            part_ms = seg.timer.ms()
         with torch.profiler.profile(activities=act) as prof:
             t0 = time.time()
             seg.run(inp[2 * steps:])
@@ -263,7 +392,7 @@ def profile_steps(batch=256, steps=8, gates="bench", graph=True,
         "step": "graph" if seg.graph else "eager",
         "warm_up_s": warm_s,
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
-        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "replay_ms": replay_ms, "part_ms": part_ms,
         "traced_wall_ms_per_step": traced / steps * 1e3,
         "kernel_launches_per_step": launches / steps,
         "device_kernels_per_step": kernels / steps,

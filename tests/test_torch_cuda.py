@@ -349,3 +349,66 @@ def test_sharded_capture_runs_its_warm_up_under_sync_debug_error(gpu):
     finally:
         dist.destroy_process_group()
 
+
+
+# ---- the Meter's device records (utils/profiling.py)
+
+@pytest.mark.parametrize("gates", [{}, {"PORT": 1}])
+def test_meter_times_each_replay_and_the_steps_parts(gpu, gates):
+    """Two groups of 3 lanes through runner.compress with a Meter: one
+    device sample per replay (block_size a group), each group's six parts
+    of its last replay summing to within 2% of that replay's own sample,
+    and the archive byte-identical to the one coded without a Meter, and
+    decoded exactly with one."""
+    from cmix_tpu_torch.utils.profiling import Meter
+    cfg = E.EngineConfig(**GRAPH_KW)
+    data = _lanes(6, 128).tobytes()
+    kw = dict(max_batch=3, gates=gates, device=gpu)
+    arc = runner.compress(data, cfg, **kw)
+    m = Meter()
+    assert runner.compress(data, cfg, meter=m, **kw) == arc
+    assert list(m.replay_ms) == [0] and list(m.part_ms) == [0]
+    replays, parts = m.replay_ms[0], m.part_ms[0]
+    assert len(replays) == 2 * 128 and min(replays) > 0
+    assert len(parts) == 2
+    for i, p in enumerate(parts):
+        assert list(p) == list(E.PARTS) and min(p.values()) > 0
+        last = replays[128 * (i + 1) - 1]
+        assert abs(sum(p.values()) - last) <= 0.02 * last, (p, last)
+    d = Meter()
+    assert runner.decompress(arc, device=gpu, meter=d) == data
+    assert len(d.replay_ms[0]) == 2 * 128 and len(d.part_ms[0]) == 2
+
+
+def test_timed_graph_replays_once_a_step(gpu):
+    """The timed segment keeps one CUDAGraph.replay call a step (what the
+    benchmark's trace counts), and its outputs are the untimed graph's."""
+    cfg, g = E.EngineConfig(**GRAPH_KW), E.make_gates({})
+    inp = torch.as_tensor(_lanes(2, 32).T.copy(), device=gpu)
+    out, calls = {}, []
+    orig = torch.cuda.CUDAGraph.replay
+
+    def counted(graph):
+        calls.append(1)
+        orig(graph)
+    for timed in (False, True):
+        seg = E.make_segment_fn(cfg, g, gpu, timed=timed)
+        with torch.no_grad():
+            seg.start(E.init_shared(cfg, g, gpu),
+                      E.init_perblock(cfg, g, 2, gpu), E.init_coder(2, gpu),
+                      torch.zeros((2, cfg.comp_size), dtype=torch.uint8,
+                                  device=gpu),
+                      torch.zeros(2, dtype=torch.int64, device=gpu))
+            calls.clear()
+            torch.cuda.CUDAGraph.replay = counted
+            try:
+                out[timed] = [x.clone() for x in seg.run(inp)]
+            finally:
+                torch.cuda.CUDAGraph.replay = orig
+        assert len(calls) == 32
+        torch.cuda.synchronize()
+        if timed:
+            assert len(seg.replay_ms(seg.ring)) == 32
+            assert list(seg.timer.ms()) == list(E.PARTS)
+    for a, b in zip(out[False], out[True]):
+        assert torch.equal(a, b)
