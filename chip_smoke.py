@@ -20,7 +20,18 @@ without one.  Phases, each of which raises on failure:
    host's enqueue, so the events time the device; tables cold and warm),
    the wrappers' host µs per call, the per-level slope and the chain
    floor (L+1 levels at that slope); then both kernels at the larger pools
-   N=32768 and N=65536 (L=8), checked and timed the same way;
+   N=32768 and N=65536 (L=8), checked and timed the same way; then the
+   portable LSTM's update chain (``csrc/ilstm_update.cu``, three launches)
+   against its plain version on the card, every leaf of ``sh`` and ``pb``
+   exact over 16 consecutive updates from the init state at (B, H, W) =
+   (64, 256, 8), (256, 256, 4), (3, 16, 1) and (5, 8, 12), with SGD, the
+   integer Adam and ILSTM_LRX=9, on text lanes and on edge inputs (bytes 0
+   and 255, weights at their clips: saturated pre-activations, clipped
+   gradients); timed at (64, 256, 8) and (256, 256, 4) beside its bound
+   (int32 multiply-adds at the data sheet's rate; the L2 bytes its blocks
+   reread at the faster L2 rate of a resident torch reduction and copy),
+   the plain version's device time (captured as a graph), each kernel's
+   share (torch.profiler) and the time with the other lane grouping;
 4. the fast profile's main path: ``runner.compress`` then
    ``runner.decompress`` at the CLI widths and default gates on a text
    prefix of ``testdata/text100k.raw`` (size and block size cut, printed),
@@ -139,6 +150,7 @@ prints its seconds.
 import hashlib
 import json
 import os
+import re
 import struct
 import sys
 import time
@@ -147,6 +159,10 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_OPS_PER_S = 67e12           # H100 SXM, outside the tensor cores
+# int32 multiply-adds: 64 a clock an SM (NVIDIA's instruction throughput
+# table, compute capability 9.0), 132 SMs at the H100 SXM's 1.98 GHz boost
+# clock
+INT32_MADS_PER_S = 64 * 132 * 1.98e9
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # The coding paths' time is their byte steps (as many as the block has
 # bytes; a captured graph's replay on the card), the dictionary's replay
@@ -168,6 +184,13 @@ LEVELS = range(1, 9)
 REPS, COLD = 200, 128
 LARGE_POOLS = (32768, 65536)
 STEP_STEPS = 8
+# the portable LSTM's update chain: checked at ILSTM_SHAPES (B, H, W) under
+# each optimizer of ILSTM_OPTS (ILSTM_ADAM, ILSTM_LRX), ILSTM_STEPS updates
+# from the init state; timed at ILSTM_TIMED (the cells' and bench.py's)
+ILSTM_SHAPES = ((64, 256, 8), (256, 256, 4), (3, 16, 1), (5, 8, 12))
+ILSTM_OPTS = {"sgd": (0, 4), "adam": (1, 4), "lrx9": (0, 9)}
+ILSTM_STEPS = 16
+ILSTM_TIMED = ((64, 256, 8), (256, 256, 4))
 # the graph phase: the bench-width segment (the block cut to one segment
 # of bench.py's 2048 steps), steps per profiled segment, and the bytes of
 # the dictionary that the graph-vs-eager replays replay (cut from all 600
@@ -347,7 +370,8 @@ class Launches:
     def __enter__(self):
         from cmix_tpu_torch.models import dmc
         self.fns = {"dmc_fused": dmc.fused_apply_walk,
-                    "dmc_counts": dmc.counts_walk}
+                    "dmc_counts": dmc.counts_walk,
+                    "ilstm_update": dmc.ilstm_shared_byte_update}
         for fn in self.fns.values():
             fn.launches = 0
         return self
@@ -644,6 +668,186 @@ def large_pools(device, B=256, levels=8, n_steps=50):
             kernels_vs_plain(st, levels, label)
         out[N] = time_level(pb, levels)
         print(f"N={N}: both kernels exact on {len(cases)} descriptor sets")
+    return out
+
+
+def ilstm_inputs(B, H, W, opt, kind, steps, device):
+    """-> (cfg, sh, pb, bytes): the engine's PORT=1 LSTM config at hidden H
+    and horizon W under optimizer ``opt`` (ILSTM_OPTS), its init state for
+    B lanes and ``steps`` bytes a lane: B text lanes of bench4m.raw
+    (``kind`` "text"), or "edge": bytes 0 and 255 and every weight at +-
+    its clip (saturated pre-activations, clipped gradients)."""
+    import numpy as np
+    import torch
+    from cmix_tpu_torch.engine import EngineConfig, _lstm_cfg, make_gates
+    from cmix_tpu_torch.mixer import ilstm
+    adam, lrx = ILSTM_OPTS[opt]
+    cfg = _lstm_cfg(EngineConfig(lstm_hidden=H, lstm_horizon=W), make_gates(
+        {"PORT": 1, "ILSTM_ADAM": adam, "ILSTM_LRX": lrx}))
+    sh = ilstm.init_ilstm_shared(cfg, device)
+    pb = ilstm.init_ilstm_perblock(cfg, B, device)
+    rng = np.random.default_rng(B * 65536 + H * 256 + W)
+    if kind == "edge":
+        seq = rng.choice([0, 255], (steps, B))
+        for k, clip in zip(ilstm._KEYS, ilstm._CLIPS):
+            sh[k] = torch.as_tensor(rng.choice([-clip, clip], sh[k].shape),
+                                    dtype=torch.int32, device=device)
+    else:
+        with open(os.path.join(ROOT, "testdata", "bench4m.raw"), "rb") as f:
+            raw = np.frombuffer(f.read(), np.uint8)
+        starts = rng.integers(0, len(raw) - steps, B)
+        seq = np.stack([raw[s:s + steps] for s in starts], axis=1)
+    return cfg, sh, pb, [torch.as_tensor(x.astype(np.int64), device=device)
+                         for x in seq]
+
+
+def ilstm_vs_plain(B, H, W, opt, kind, steps, device):
+    """The chain (``ilstm_shared_byte_update`` on the card) against the plain
+    version on the same card over ``steps`` consecutive updates from the
+    init state -> {} or {leaf@update: differing values} at the first
+    update that differs."""
+    import torch
+    from cmix_tpu_torch.mixer import ilstm
+    cfg, sh, pb, seq = ilstm_inputs(B, H, W, opt, kind, steps, device)
+    sk, pk = sh, pb
+    for t, byte in enumerate(seq):
+        sh, pb = ilstm._update_plain(cfg, sh, pb, byte)
+        sk, pk = ilstm.ilstm_shared_byte_update(cfg, sk, pk, byte)
+        torch.cuda.synchronize()
+        bad = {f"{k}@{t}": int((a[k] != b[k]).sum())
+               for a, b in ((sh, sk), (pb, pk)) for k in a
+               if set(a) != set(b) or not torch.equal(a[k], b[k])}
+        if bad:
+            return bad
+    return {}
+
+
+def ilstm_work(B, H, W, lanes):
+    """(int32 multiply-adds, L2 bytes of weights reread) of one update of
+    the chain: both halves of each weight a row; kernel 1's blocks reread
+    wh and wo each step (the backward's last wh contraction is not
+    needed), kernel 3's once."""
+    G = 3 * H
+    mads = (B * 2 * (W * G * H + 2 * W * 256 * H + (W - 1) * G * H)
+            + W * B * (G * H + 256 * H) + B * 2 * (2 * G * H + 256 * H))
+    blocks = -(-B // lanes)
+    l2 = 4 * blocks * (W * (G * H + 256 * H) + W * 256 * H
+                       + (W - 1) * G * H + G * H + 256 * H)
+    return mads, l2
+
+
+def _graph_ms(fn, reps):
+    """Device ms of ``fn`` captured as a CUDA graph, over ``reps`` replays
+    (the plain version's yardstick: its kernels back to back, as in the
+    byte step's graph)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _kernel_shares(fn, reps):
+    """{kernel name: device ms a call} of the ilstm kernels over ``reps``
+    calls, from torch.profiler ({} where it sees no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "cuda_time_total", 0)
+        name = re.search(r"ilstm_[a-z]+", e.key)
+        if name and dev_us:
+            out[name[0]] = out.get(name[0], 0.0) + dev_us / 1e3 / reps
+    return out
+
+
+def l2_rate(device):
+    """Bytes a second the faster of a torch reduction (reads) and a torch
+    copy (reads and writes) moves on 16 MiB that stay in the 50 MB L2:
+    the yardstick of the chain's L2 bound (the data sheet gives none)."""
+    import torch
+    x = torch.ones(4 << 20, dtype=torch.int32, device=device)
+    y = torch.empty(2 << 20, dtype=torch.int32, device=device)
+    red = _device_ms([lambda: torch.sum(x, dtype=torch.int32)], 200)
+    cp = _device_ms([lambda: y.copy_(x[:2 << 20])], 200)
+    return max(x.numel() * 4 / (red["ms"] * 1e-3),
+               2 * y.numel() * 4 / (cp["ms"] * 1e-3))
+
+
+def ilstm_kernel(device):
+    """The portable LSTM's update chain: exact against the plain version at
+    every shape, optimizer and input kind, then timed -> {shape: res}."""
+    import functools
+    import torch
+    from cmix_tpu_torch.mixer import ilstm
+    n = 0
+    for shape in ILSTM_SHAPES:
+        for opt in ILSTM_OPTS:
+            for kind in ("text", "edge"):
+                bad = ilstm_vs_plain(*shape, opt, kind, ILSTM_STEPS, device)
+                if bad:
+                    raise AssertionError(
+                        f"ilstm_update (B, H, W)={shape} {opt} {kind}: "
+                        f"differs from the plain version: {bad}")
+                n += 1
+    print(f"ilstm_update: exact against the plain version in {n} runs of "
+          f"{ILSTM_STEPS} updates (shapes {ILSTM_SHAPES}, "
+          f"{', '.join(ILSTM_OPTS)}, text and edge inputs)")
+    l2 = l2_rate(device)
+    out = {}
+    for B, H, W in ILSTM_TIMED:
+        cfg, sh, pb, seq = ilstm_inputs(B, H, W, "sgd", "text", 8, device)
+        for byte in seq[:-1]:
+            sh, pb = ilstm.ilstm_shared_byte_update(cfg, sh, pb, byte)
+        call = functools.partial(ilstm.ilstm_shared_byte_update, cfg, sh, pb,
+                                 seq[-1])
+        r = _device_ms([call], 50)
+        plain = _graph_ms(functools.partial(ilstm._update_plain, cfg, sh, pb,
+                                            seq[-1]), 20)
+        shares = _kernel_shares(call, 10)
+        lanes = ilstm._lanes(B, device)
+        # the other lane group, for the choice in the kernel's note
+        other = 3 - lanes
+        alt = _device_ms([functools.partial(
+            ilstm._launch, ilstm._kernel_lib(), cfg, sh, pb, seq[-1],
+            torch.cuda.current_stream(device).cuda_stream, other)], 50)
+        mads, l2_bytes = ilstm_work(B, H, W, lanes)
+        res = dict(ms=r["ms"], host_us=r["host_us"], plain_ms=plain,
+                   mads=mads, bound_ms=mads / INT32_MADS_PER_S * 1e3,
+                   l2_bytes=l2_bytes, l2_ms=l2_bytes / l2 * 1e3,
+                   l2_rate=l2, lanes=lanes, kernels_ms=shares,
+                   other_lanes_ms=alt["ms"])
+        out[(B, H, W)] = res
+        print(f"ilstm_update B={B} H={H} W={W} ({lanes} lane(s) a block): "
+              f"device {res['ms']:.5f} ms a call ("
+              + ", ".join(f"{k} {v:.5f}" for k, v in shares.items())
+              + f"); wrapper {res['host_us']:.1f} us host a call; bound "
+              f"{res['bound_ms']:.5f} ms ({mads} int32 multiply-adds); "
+              f"L2 rereads {l2_bytes} B, {res['l2_ms']:.5f} ms at "
+              f"{l2 / 1e12:.3f} TB/s; plain version {plain:.4f} ms "
+              f"(graph); {other} lane(s) a block {alt['ms']:.5f} ms")
     return out
 
 
@@ -1647,6 +1851,7 @@ def main():
     phase("build", build_kernels)
     res = phase("kernels", check_dmc_kernels, device)
     phase("large pools", large_pools, device)
+    lstm = phase("ilstm kernel", ilstm_kernel, device)
     windows, main_arc = phase("main path", main_path, device)
     windows += phase("main path, horizon 8", main_path_h8, device)
     windows += phase("portable fixture", portable_cross_device, device)
@@ -1718,6 +1923,18 @@ def main():
           f"(max_abs_err 0); times at L=8, B=256 (device, tables cold); "
           f"dmc_counts is on no path of the system, as its TPU original; "
           f"{time.time() - t_all:.1f} s in all")
+    r = lstm[ILSTM_TIMED[0]]
+    lstm_launches = sum(w.counts["ilstm_update"] for w in windows)
+    kernels.append({
+        "name": "ilstm_update", "route": "cuda",
+        "source": "cmix_tpu_torch/csrc/ilstm_update.cu", "replaces": None,
+        "launches": lstm_launches, "max_abs_err": 0, "ms": r["ms"],
+        "host_us": r["host_us"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": "int32 multiply-adds",
+        "l2_ms": r["l2_ms"], "kernels_ms": r["kernels_ms"],
+        "library_ms": None})
+    print(f"ilstm_update: {lstm_launches} launches over the coding paths "
+          f"(3 an update of a PORT=1 step); times at B=64, H=256, W=8")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

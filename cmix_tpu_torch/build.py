@@ -76,6 +76,21 @@ def _nvcc_build(name, out, verbose):
     return res.stdout + res.stderr
 
 
+def check_operands(name, args, shapes, device, dtypes=None):
+    """Raise ValueError unless each tensor of ``args`` is contiguous, on
+    ``device``, of its shape in ``shapes`` and of int32 (or of one of its
+    entry's ``dtypes``, a tuple per tensor): what a kernel's pointers may
+    point at."""
+    import torch
+    for i, (a, s) in enumerate(zip(args, shapes)):
+        ok = dtypes[i] if dtypes else (torch.int32,)
+        if (a.device != device or a.dtype not in ok
+                or tuple(a.shape) != s or not a.is_contiguous()):
+            raise ValueError(
+                f"{name}: expected contiguous {ok[0]} {s} on {device}, "
+                f"got {a.dtype} {tuple(a.shape)} on {a.device}")
+
+
 def load(name):
     """The ctypes handle of the built ``csrc/<name>.cu`` (built on demand)."""
     with _LOCK:

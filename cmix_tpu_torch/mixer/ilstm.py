@@ -16,6 +16,11 @@ Every contraction is an int32 einsum in the JAX package; here it is
 ``intmath.ieinsum`` (exact sum wrapped to int32), so the result is the
 same on the CPU and the card.
 
+``ilstm_shared_byte_update`` is the wrapper of the update: CUDA tensors
+launch the hand-written kernel chain ``csrc/ilstm_update.cu`` (three
+launches, counted in its ``.launches``); CPU tensors take the plain
+version ``_update_plain``, which the tests hold against the JAX package.
+
 Fixed-point domains:
   activations h, c, gate outputs: Q12 (4096 = 1.0), |.| <= 4096
   pre-activations, gradients:     Q12, clipped
@@ -24,13 +29,15 @@ Fixed-point domains:
   qcum:                           int32 cumulative, ~2^16 total
 """
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from cmix_tpu_torch import build
 from cmix_tpu_torch.utils.intmath import (
-    _exp2_parts, ieinsum, squash12_lut)
+    ST13_MAX, ST13_MIN, _exp2_parts, _lut, ieinsum, squash12, squash12_lut)
 
 W_CLIP = 4 * 65536          # Q16 weight bound (exactness of _dot16)
 PRE_CLIP = 32760            # Q12 pre-activation bound (+-8 real)
@@ -166,7 +173,27 @@ def ilstm_shared_byte_update(cfg: ILstmConfig, sh, pb, bytes_b):
     """Replay the horizon window forward (stashing), run the integer
     backward, update the shared weights (mean-over-batch SGD or the
     integer Adam), slide the window, advance the running state and cache
-    the next-byte integer distribution.  bytes_b: (B,) integer."""
+    the next-byte integer distribution.  bytes_b: (B,) integer, bytes.
+
+    -> (sh, pb), new tensors.  CUDA tensors launch ``csrc/ilstm_update.cu``
+    (counted in ``ilstm_shared_byte_update.launches``, 3 an update); CPU
+    tensors take the plain version, ``_update_plain``.  Operands the kernel
+    does not take raise ValueError."""
+    if not sh["wh"].is_cuda:
+        return _update_plain(cfg, sh, pb, bytes_b)
+    dev = sh["wh"].device
+    out = _launch(_kernel_lib(), cfg, sh, pb, bytes_b,
+                  torch.cuda.current_stream(dev).cuda_stream,
+                  _lanes(bytes_b.shape[0], dev))
+    ilstm_shared_byte_update.launches += LAUNCHES
+    return out
+
+
+ilstm_shared_byte_update.launches = 0
+
+
+def _update_plain(cfg: ILstmConfig, sh, pb, bytes_b):
+    """The update in plain PyTorch (the CPU path)."""
     B = bytes_b.shape[0]
     H, W = cfg.hidden, cfg.horizon
     dev = bytes_b.device
@@ -267,3 +294,106 @@ def _bits(v):
         n = n + torch.where(big, k, 0).to(I32)
         x = torch.where(big, x >> k, x)
     return n + (x > 0).to(I32)
+
+
+# ----------------------------------------------------------- CUDA kernels
+
+LAUNCHES = 3                 # kernels an update: bptt, grads, advance
+_KEYS = ("wx", "wh", "wo", "b", "bo")
+_CLIPS = (PRE_CLIP, W_CLIP, W_CLIP, PRE_CLIP, PRE_CLIP)
+_P5, _I5 = ctypes.c_void_p * 5, ctypes.c_int * 5
+
+
+class _Args(ctypes.Structure):
+    """``IlstmArgs`` of ``csrc/ilstm_update.cu``, field for field."""
+    _fields_ = ([(k, _P5) for k in ("w", "m", "v", "nw", "nm", "nv")]
+                + [(k, ctypes.c_void_p) for k in (
+                    "lut", "ring", "bytes", "h", "c", "h0", "c0", "oh", "oc",
+                    "oh0", "oc0", "oring", "oqcum", "scratch")]
+                + [(k, ctypes.c_int) for k in (
+                    "batch", "hidden", "horizon", "lanes", "bytes64", "adam",
+                    "vec")]
+                + [(k, _I5) for k in ("lr", "alr", "clip")])
+
+
+def _set_argtypes(lib):
+    lib.ilstm_update.restype = ctypes.c_int
+    lib.ilstm_update.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    lib.ilstm_scratch_ints.restype = ctypes.c_longlong
+    lib.ilstm_scratch_ints.argtypes = [ctypes.c_int] * 3
+    return lib
+
+
+def _kernel_lib():
+    lib = build.load("ilstm_update")
+    if not getattr(lib, "_argtypes_set", False):
+        _set_argtypes(lib)
+        lib._argtypes_set = True
+    return lib
+
+
+_SMS = {}
+
+
+def _lanes(B, device):
+    """Lanes a block of the lane kernels: 1 while the lanes fit on the
+    SMs, else 2 (the note in ``csrc/ilstm_update.cu``)."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return 1 if B <= _SMS[device] else 2
+
+
+def _launch(lib, cfg, sh, pb, bytes_b, stream, lanes):
+    """Check the operands, allocate the outputs and the scratch stash, and
+    launch the chain from ``lib`` (the built ``csrc/ilstm_update.cu``) on
+    ``stream`` -> (sh, pb), new tensors."""
+    B, H, W = bytes_b.shape[0], cfg.hidden, cfg.horizon
+    dev = sh["wh"].device
+    shapes = {"wx": (256, 3 * H), "wh": (H, 3 * H), "wo": (H, 256),
+              "b": (3 * H,), "bo": (256,)}
+    keys = [p + k for p in ("", "m_", "v_")[:3 if cfg.adam else 1]
+            for k in _KEYS]
+    if set(sh) != set(keys):
+        raise ValueError(f"ilstm_update: shared keys {sorted(sh)}, "
+                         f"expected {sorted(keys)}")
+    lanes_in = [pb[k] for k in ("h", "c", "h0", "c0", "ring")] + [bytes_b]
+    build.check_operands(
+        "ilstm_update", [sh[k] for k in keys] + lanes_in,
+        [shapes[k.split("_")[-1]] for k in keys] + [(B, H)] * 4
+        + [(B, W), (B,)], dev,
+        [(I32,)] * (len(keys) + 5) + [(torch.int64, I32)])
+    new = {k: torch.empty_like(v) for k, v in sh.items()}
+    out = {k: torch.empty((B, H), dtype=I32, device=dev)
+           for k in ("h", "c", "h0", "c0")}
+    out["ring"] = torch.empty((B, W), dtype=I32, device=dev)
+    out["qcum"] = torch.empty((B, 257), dtype=I32, device=dev)
+    scratch = torch.empty(lib.ilstm_scratch_ints(B, H, W), dtype=I32,
+                          device=dev)
+    lut = _lut(squash12, ST13_MIN, ST13_MAX, dev)
+    ptr = lambda ks: _P5(*(sh[k].data_ptr() for k in ks))     # noqa: E731
+    nptr = lambda ks: _P5(*(new[k].data_ptr() for k in ks))   # noqa: E731
+    a = _Args(
+        w=ptr(_KEYS), nw=nptr(_KEYS),
+        m=ptr("m_" + k for k in _KEYS) if cfg.adam else _P5(),
+        v=ptr("v_" + k for k in _KEYS) if cfg.adam else _P5(),
+        nm=nptr("m_" + k for k in _KEYS) if cfg.adam else _P5(),
+        nv=nptr("v_" + k for k in _KEYS) if cfg.adam else _P5(),
+        lut=lut.data_ptr(), ring=pb["ring"].data_ptr(),
+        bytes=bytes_b.data_ptr(), h=pb["h"].data_ptr(),
+        c=pb["c"].data_ptr(), h0=pb["h0"].data_ptr(),
+        c0=pb["c0"].data_ptr(), oh=out["h"].data_ptr(),
+        oc=out["c"].data_ptr(), oh0=out["h0"].data_ptr(),
+        oc0=out["c0"].data_ptr(), oring=out["ring"].data_ptr(),
+        oqcum=out["qcum"].data_ptr(), scratch=scratch.data_ptr(),
+        batch=B, hidden=H, horizon=W, lanes=lanes,
+        bytes64=int(bytes_b.dtype == torch.int64), adam=int(cfg.adam),
+        vec=4 if H % 4 == 0 and all(sh[k].data_ptr() % 16 == 0
+                                    for k in ("wh", "wo")) else 1,
+        lr=_I5(cfg.lr_wx, cfg.lr_wh, cfg.lr_wo, cfg.lr_b, cfg.lr_b),
+        alr=_I5(cfg.alr_wx, cfg.alr_wh, cfg.alr_wo, cfg.alr_b, cfg.alr_b),
+        clip=_I5(*_CLIPS))
+    rc = lib.ilstm_update(ctypes.byref(a), stream)
+    if rc != 0:
+        raise RuntimeError(f"ilstm_update launch failed: CUDA error {rc}")
+    return new, out

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from cmix_tpu_torch import build
+from cmix_tpu_torch.mixer.ilstm import ilstm_shared_byte_update
 from cmix_tpu_torch.u32 import to_bits
 
 UNIT = 8
@@ -129,15 +130,6 @@ def _kernel_lib(name, n_ptr):
     return fn
 
 
-def _check_operands(name, args, shapes, device):
-    for a, s in zip(args, shapes):
-        if (a.device != device or a.dtype != torch.int32
-                or tuple(a.shape) != s or not a.is_contiguous()):
-            raise ValueError(
-                f"{name}: expected contiguous int32 {s} on {device}, "
-                f"got {a.dtype} {tuple(a.shape)} on {a.device}")
-
-
 def fused_apply_walk(nxt, cnt, cur, uX, uXC, uS, uSW, uU, uUW, levels):
     """Apply pending descriptors to (nxt, cnt) IN PLACE, then walk.
 
@@ -151,7 +143,7 @@ def fused_apply_walk(nxt, cnt, cur, uX, uXC, uS, uSW, uU, uUW, levels):
         return _walk_plain(nxt, cnt, cur, levels)
     B, N = nxt.shape
     args = (nxt, cnt, cur, uX, uXC, uS, uSW, uU, uUW)
-    _check_operands("dmc_fused", args, (
+    build.check_operands("dmc_fused", args, (
         (B, N), (B, N), (B,), (B, N_UX), (B, N_UX), (B, N_UP), (B, N_UP),
         (B, N_UP), (B, N_UP)), nxt.device)
     cw = torch.empty((B, 1 << levels), dtype=torch.int32, device=nxt.device)
@@ -190,8 +182,8 @@ def counts_walk(nxt, cnt, cur, levels):
     if not nxt.is_cuda:
         return _counts_plain(nxt, cnt, cur, levels)
     B, N = nxt.shape
-    _check_operands("dmc_counts", (nxt, cnt, cur), ((B, N), (B, N), (B,)),
-                    nxt.device)
+    build.check_operands("dmc_counts", (nxt, cnt, cur),
+                         ((B, N), (B, N), (B,)), nxt.device)
     out = torch.empty((B, 256), dtype=torch.int32, device=nxt.device)
     stream = torch.cuda.current_stream(nxt.device).cuda_stream
     rc = _kernel_lib("dmc_counts", 4)(
@@ -206,8 +198,9 @@ def counts_walk(nxt, cnt, cur, levels):
 counts_walk.launches = 0
 
 
-# the kernel wrappers, each counting its launches in ``.launches``
-WRAPPERS = (fused_apply_walk, counts_walk)
+# the kernel wrappers, each counting its launches in ``.launches``: both
+# DMC kernels and the portable LSTM's update chain (``mixer/ilstm.py``)
+WRAPPERS = (fused_apply_walk, counts_walk, ilstm_shared_byte_update)
 
 
 def launch_counts():

@@ -13,6 +13,7 @@ import torch
 import chip_smoke
 from cmix_tpu_torch import engine as E
 from cmix_tpu_torch import runner
+from cmix_tpu_torch.mixer.ilstm import LAUNCHES, ilstm_shared_byte_update
 from cmix_tpu_torch.models import dmc
 from cmix_tpu_torch.utils.profiling import GATE_SETS
 
@@ -136,8 +137,11 @@ def test_portable_roundtrip_on_gpu_matches_the_cpu(gpu, gates):
         data = f.read()[4000:4160]
     kw = dict(max_batch=2, gates=gates)
     dmc.fused_apply_walk.launches = 0
+    ilstm_shared_byte_update.launches = 0
     arc = runner.compress(data, cfg, device=gpu, **kw)
     assert dmc.fused_apply_walk.launches == 128          # two groups
+    # the LSTM's chain: its launches an update, once a byte step
+    assert ilstm_shared_byte_update.launches == 128 * LAUNCHES
     assert runner.decompress(arc, device=gpu) == data
     assert runner.compress(data, cfg, device="cpu", **kw) == arc
 
@@ -186,11 +190,13 @@ def test_graph_archives_equal_the_eager_steps(gpu, gates):
         assert np.array_equal(hist, inp)
 
 
-def test_graph_counts_its_launches_per_replay(gpu):
-    """The capture records one dmc_fused launch and no dmc_counts launch;
-    the warm-up's and the capture's host calls are not counted, each
-    replay is."""
-    cfg, g = E.EngineConfig(**GRAPH_KW), E.make_gates({})
+@pytest.mark.parametrize("gates", [{}, {"PORT": 1}])
+def test_graph_counts_its_launches_per_replay(gpu, gates):
+    """The capture records one dmc_fused launch, no dmc_counts launch and,
+    in PORT=1, the LSTM chain's launches; the warm-up's and the capture's
+    host calls are not counted, each replay is."""
+    cfg, g = E.EngineConfig(**GRAPH_KW), E.make_gates(gates)
+    lstm = LAUNCHES if gates else 0
     seg = E.make_segment_fn(cfg, g, gpu)
     n0 = dmc.launch_counts()
     with torch.no_grad():
@@ -199,9 +205,10 @@ def test_graph_counts_its_launches_per_replay(gpu):
                   torch.zeros((2, cfg.comp_size), dtype=torch.uint8,
                               device=gpu),
                   torch.zeros(2, dtype=torch.int64, device=gpu))
-        assert seg.per_replay == [1, 0] and dmc.launch_counts() == n0
+        assert seg.per_replay == [1, 0, lstm]
+        assert dmc.launch_counts() == n0
         seg.run(torch.as_tensor(_lanes(2, 32).T.copy(), device=gpu))
-    assert dmc.launch_counts() == [n0[0] + 32, n0[1]]
+    assert dmc.launch_counts() == [n0[0] + 32, n0[1], n0[2] + 32 * lstm]
 
 
 def test_capture_runs_its_warm_up_under_sync_debug_error(gpu):
@@ -327,7 +334,8 @@ def test_sharded_capture_runs_its_warm_up_under_sync_debug_error(gpu):
                           torch.zeros(2, dtype=torch.int64, device=gpu))
             return seg, comm
         seg, comm = start()
-        assert seg.graph and seg.ready and seg.per_replay == [1, 0]
+        assert seg.graph and seg.ready
+        assert seg.per_replay == [1, 0, LAUNCHES]
         assert comm.counts == dict(gather_bytes=0, gathers=0,
                                    reduce_bytes=0, reduces=0)
         assert seg.comm_per_replay["gathers"] == 2

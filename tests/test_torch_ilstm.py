@@ -78,3 +78,34 @@ def test_one_update_from_identical_state(adam, W):
     # the update really moved the weights and the distribution
     assert int(np.abs(np.asarray(sh["wo"]) - _np(jil.init_ilstm_shared(cj))[
         "wo"]).max()) > 0
+
+
+@pytest.mark.parametrize("adam", [False, True])
+def test_cpu_tensors_take_the_plain_path(adam):
+    """The wrapper on CPU tensors runs the plain version (every leaf equal
+    to ``_update_plain``'s) and counts no kernel launch."""
+    ct = til.ILstmConfig(hidden=H, horizon=4, adam=adam)
+    sh, pb = til.init_ilstm_shared(ct, CPU), til.init_ilstm_perblock(ct, B,
+                                                                    CPU)
+    data = np.frombuffer(open("testdata/text100k.raw", "rb").read()[
+        :B * 8], np.uint8).reshape(8, B).astype(np.int64)
+    n0 = til.ilstm_shared_byte_update.launches
+    want = sh, pb
+    for t in range(8):
+        byte = torch.as_tensor(data[t])
+        sh, pb = til.ilstm_shared_byte_update(ct, sh, pb, byte)
+        want = til._update_plain(ct, *want, byte)
+    assert til.ilstm_shared_byte_update.launches == n0
+    for got, ref in zip((sh, pb), want):
+        assert set(got) == set(ref)
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), k
+
+
+def test_lane_group_follows_the_sms(monkeypatch):
+    """One lane a block of the lane kernels while the lanes fit on the
+    SMs, two above (the note in csrc/ilstm_update.cu)."""
+    dev = torch.device("cuda", 0)
+    monkeypatch.setitem(til._SMS, dev, 132)
+    assert [til._lanes(b, dev) for b in (1, 64, 132, 133, 256)] == [
+        1, 1, 1, 2, 2]
