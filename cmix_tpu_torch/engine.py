@@ -1452,15 +1452,24 @@ def _ppm_blend_int(sh, ppm_rows, C, p_idx, excl):
     return _st256(p12)[:, None, :], pcnt, ptot, pdst, see_d, see_t, see_p
 
 
-def _predict_tree_b(cfg, g, C, sh, pb, t, comm=None):
+def _predict_tree_b(cfg, g, C, sh, pb, t, comm=None, part=None):
     """Predictions for all 256 tree nodes of the current byte, batched.
     Returns (p_tree f32 (B, 256), aux dict threaded to _update_tree_b).
     A sharded step's ``comm`` reads the tp tables and holds every lane's
-    history (match cursors point into any block)."""
+    history (match cursors point into any block); ``part`` marks the
+    routed work (``ROUTED``) inside the ``predict`` part."""
+    part = part or _no_part
     cs = pb["ctx"]
     node, level = C.node, C.level
     dev = node.device
+    # the record grid's contexts, its four base columns included, where
+    # GRID2's and JPEGX's columns widen it
+    grid = g.grid2 or g.jpegx
+    if grid:
+        part(ROUTED)
     rec_vals, rec_rl, rec_posr, jx = _record_ctx_vals(cfg, g, C, pb, t)
+    if grid:
+        part("predict")
     x86_vals, x86_gate = x86_ctx_vals(pb["x86"])
     dist_b1 = None
     if g.ctx4:
@@ -1603,6 +1612,7 @@ def _predict_tree_b(cfg, g, C, sh, pb, t, comm=None):
     # records back votes its tree path (LMS=2: media blocks only)
     lms, lm = None, []
     if g.lms:
+        part(ROUTED)
         rl = rec_rl[:, None] * C.lms_k[None, :]
         xs = torch.gather(pb["hist"], 1, torch.remainder(t - rl,
                                                          cfg.block_size)
@@ -1625,6 +1635,7 @@ def _predict_tree_b(cfg, g, C, sh, pb, t, comm=None):
         lm = [st_lms[:, None]]
         lms = dict(xs=xs_f, pred=predf, pbyte=pbyte, errb=errb, conf=lconf,
                    med=med)
+        part("predict")
 
     # ---- vertical match (VMATCH): the previous line's byte at this column
     # votes its tree path, its confidence learned per matched-prefix length
@@ -1878,13 +1889,15 @@ def _slot_update_int(slots, target_i, cap):
     return (stretch13_lut(newp) << 18) | (newp << 6) | newc
 
 
-def _update_tree_b(cfg, g, C, sh, aux, byte, t, comm=None):
+def _update_tree_b(cfg, g, C, sh, aux, byte, t, comm=None, part=None):
     """Adapt every model along each block's 8-node tree path (MIX_NORM,
     STAT_NORM, count-normalized final blend; integer twins under PORT).
     t: the byte index, a 0-d device tensor (MIX_TAU's rate decays with
     it, computed on the device).  A sharded step passes every lane's aux
     and byte and its ``comm``, which writes this rank's rows of the tp
-    tables."""
+    tables.  ``part`` marks the LMS's update (``ROUTED``) inside the
+    ``update`` part."""
+    part = part or _no_part
     lr = g.mix_lr
     if g.mix_tau:
         lr = g.mix_lr * torch.rsqrt(1.0 + t.float() / g.mix_tau)
@@ -2118,6 +2131,7 @@ def _update_tree_b(cfg, g, C, sh, aux, byte, t, comm=None):
                                         1 - 1e-3)
     lms = aux["lms"]
     if lms is not None:
+        part(ROUTED)
         # the shared confidence per error bucket (STAT_NORM: the mean; at
         # LMS=2 only media blocks teach it)
         lderr = ((lms["pbyte"] == byte).float() - lms["conf"]) * 0.02
@@ -2128,6 +2142,7 @@ def _update_tree_b(cfg, g, C, sh, aux, byte, t, comm=None):
         if norm:
             d_lm = d_lm / torch.clamp(loh.sum(dim=0), min=1.0)
         sh["lms_conf"] = torch.clamp(sh["lms_conf"] + d_lm, 1e-3, 1 - 1e-3)
+        part("update")
     if port:
         return _update_mixers_int(g, C, sh, aux, target_i, onp_i, n8, t8_i)
 
@@ -2458,7 +2473,10 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device, comm=None,
 
     ``part`` (``_PartTimer``): called with a part's name (``PARTS``) where
     the coder, update, state and lstm parts begin; the step's caller marks
-    predict's start and copyback's."""
+    predict's start and copyback's.  With GRID2, JPEGX or LMS on, the
+    routed work is marked ``ROUTED`` where it begins and the enclosing
+    part's name where that resumes: the record grid's contexts and the
+    LMS's prediction in ``predict``, the LMS's updates in ``update``."""
     C = _Consts(g, device)
     part = part or _no_part
     imask = (1 << cfg.ibits) - 1
@@ -2485,7 +2503,7 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device, comm=None,
         ind_prev_val = _rows(sh, "aux_tbl", ind_off[None, :] + ind_key_prev,
                              comm=comm).long() & M32
 
-        p_tree, aux = _predict_tree_b(cfg, g, C, sh, pb, t, comm)
+        p_tree, aux = _predict_tree_b(cfg, g, C, sh, pb, t, comm, part)
         if g.port:
             p16_tree = p_tree.long()         # already p16, clipped
         else:
@@ -2511,16 +2529,17 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device, comm=None,
 
         part("update")
         if comm is None:
-            sh = _update_tree_b(cfg, g, C, sh, aux, byte, t)
+            sh = _update_tree_b(cfg, g, C, sh, aux, byte, t, part=part)
         else:
             lanes, byte_all, lstm_all = comm.lanes((
                 {k: v for k, v in aux.items() if k not in _AUX_NOT_LANES},
                 byte, pb.get("lstm")))
             sh = _update_tree_b(cfg, g, C, sh, dict(
                 lanes, w_const=aux["w_const"], w_level=aux["w_level"]),
-                byte_all, t, comm)
+                byte_all, t, comm, part)
         lms = aux["lms"]
         if lms is not None:                  # the block's own taps
+            part(ROUTED)
             lerr = (byte.float() - 128.0) * (1.0 / 128.0) - lms["pred"]
             pb["lms_w"] = pb["lms_w"] + LMS_MU * lerr[:, None] * lms["xs"]
             pb["lms_err"] = 0.98 * pb["lms_err"] + 0.02 * lerr.abs()
@@ -2584,6 +2603,9 @@ def make_byte_step(cfg: EngineConfig, g: Gates, device, comm=None,
 # prediction, the 8 coder steps, the shared tables' update, the per-lane
 # state, the LSTM's update, and the static step's copy-back and row writes
 PARTS = ("predict", "coder", "update", "state", "lstm", "copyback")
+# the content-routed work's part, marked only where GRID2, JPEGX or LMS is
+# on (``make_byte_step``): its device ms are taken out of the parts above
+ROUTED = "routed"
 
 
 def _no_part(name):
@@ -2595,7 +2617,8 @@ class _PartTimer:
     ``armed`` (the capture) each mark records an external timing event,
     which the graph keeps as an event node and re-records on every
     replay; ``None`` marks the end of the last part.  ``ms()`` reads the
-    parts of the last replay (the stream idle)."""
+    parts of the last replay (the stream idle), a part marked more than
+    once summed over its stretches."""
 
     def __init__(self):
         self.armed = False
@@ -2609,8 +2632,10 @@ class _PartTimer:
 
     def ms(self):
         """{part: device ms} of the last replay."""
-        return {a[0]: a[1].elapsed_time(b[1])
-                for a, b in zip(self.marks, self.marks[1:])}
+        out = {}
+        for a, b in zip(self.marks, self.marks[1:]):
+            out[a[0]] = out.get(a[0], 0.0) + a[1].elapsed_time(b[1])
+        return out
 
 
 def _tree_copy(tree):

@@ -18,6 +18,7 @@ reads it on each call and then keeps every JPEG span as a pass-through
 ``SEG_JPEG`` entry.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -285,13 +286,14 @@ def exe_decode(data: bytes) -> bytes:
 # ------------------------------------------------- segmented preprocessing
 
 
-def transform(data: bytes, dictionary=None):
+def transform(data: bytes, dictionary=None, span=contextlib.nullcontext):
     """Detect content types and apply per-segment transforms ->
     (payload, meta): text is WRT-coded where ``dictionary`` (a
     ``Dictionary``) shrinks it; meta entries are (type, enc_len, raw_len),
     media entries add the record stride, recoded-JPEG entries also the body
     offset and the per-component plane lengths.  JPEG spans are recoded
-    unless ``CMIX_JPEGC`` is "0" in the environment."""
+    unless ``CMIX_JPEGC`` is "0" in the environment, each inside
+    ``span("jpeg_recode")`` (a ``Meter.span``; none by default)."""
     if not data:
         return data, [(SEG_RAW, 0, 0)]
     from cmix_tpu_torch.preprocess.jpeg import (
@@ -317,8 +319,10 @@ def transform(data: bytes, dictionary=None):
             payload += raw
             meta.append((typ, len(raw), len(raw), stride))
         elif typ == SEG_JPEG:
-            enc = (jpeg_recode(raw)          # None unless exact inverse
-                   if os.environ.get("CMIX_JPEGC", "1") != "0" else None)
+            enc = None                       # None unless exact inverse
+            if os.environ.get("CMIX_JPEGC", "1") != "0":
+                with span("jpeg_recode"):
+                    enc = jpeg_recode(raw)
             if enc is None:
                 payload += raw
                 meta.append((SEG_JPEG, len(raw), len(raw)))
@@ -333,9 +337,11 @@ def transform(data: bytes, dictionary=None):
     return bytes(payload), meta
 
 
-def untransform(payload: bytes, meta, dictionary=None) -> bytes:
+def untransform(payload: bytes, meta, dictionary=None,
+                span=contextlib.nullcontext) -> bytes:
     """The inverse of ``transform``; a WRT text segment needs the
-    dictionary that coded it (FormatError without one)."""
+    dictionary that coded it (FormatError without one).  Each recoded JPEG
+    is restored inside ``span("jpeg_restore")``."""
     from cmix_tpu_torch.engine import FormatError
     from cmix_tpu_torch.preprocess.jpeg import jpeg_unrecode
     from cmix_tpu_torch.preprocess.media import img24_decode
@@ -355,7 +361,8 @@ def untransform(payload: bytes, meta, dictionary=None) -> bytes:
         elif typ == SEG_IMG24:
             out += img24_decode(seg, entry[3])
         elif typ == SEG_JPEGC:
-            out += jpeg_unrecode(seg)
+            with span("jpeg_restore"):
+                out += jpeg_unrecode(seg)
         else:
             out += seg
     return bytes(out)

@@ -85,6 +85,9 @@ AUTO_DICT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                          "english.dic")
 # dummy lanes' JPEGX offset: off every plane (as the JAX runner pads)
 _NO_JPEG = -(1 << 31) + 1
+# the Meter's counters name a segment kind by its wrt.SEG_* name, lowercased
+SEG_KINDS = {v: k[4:].lower() for k, v in vars(wrt).items()
+             if k.startswith("SEG_")}
 
 
 def _vocab_bitmap(data: bytes) -> bytes:
@@ -163,6 +166,19 @@ def _block_fields(seg_meta, nb, n):
     return (wrt.block_strides(seg_meta, nb, n),
             wrt.block_kinds(seg_meta, nb, n),
             *wrt.block_jpeg_coords(seg_meta, nb, n))
+
+
+def _count_payload(meter, n_in, n_payload, seg_meta, fields, nb):
+    """The call's counters (``Meter.count``): input and payload bytes,
+    payload bytes by segment kind and real lanes by block kind; without a
+    segment table the payload is one raw segment."""
+    meter.count("in_bytes", n_in)
+    meter.count("payload_bytes", n_payload)
+    for e in seg_meta or [(wrt.SEG_RAW, n_payload)]:
+        meter.count("seg_bytes." + SEG_KINDS[e[0]], e[1])
+    kinds = fields[1] if fields is not None else np.zeros(nb, np.int32)
+    for k, c in zip(*np.unique(kinds, return_counts=True)):
+        meter.count("lanes." + SEG_KINDS[k], c)
 
 
 def _load_dictionary(path):
@@ -347,7 +363,7 @@ def _compress(data, cfg, max_batch, dictionary, gates, device, resume_path,
                                  if dictionary is not None
                                  else (None, b"", _NO_DICT, None))
     with sp("transform"):
-        payload, seg_meta = wrt.transform(data, d)
+        payload, seg_meta = wrt.transform(data, d, sp)
     flags = _FLAG_PRETRAIN if d is not None else 0
     # text WRT does not shrink (all text, without a dictionary) is recorded
     # as a raw segment: an input of such text and raw bytes only keeps its
@@ -372,6 +388,8 @@ def _compress(data, cfg, max_batch, dictionary, gates, device, resume_path,
     vocab = _vocab_bitmap(payload)
     vforce = _vocab_force(vocab)
     fields = _block_fields(seg_meta, nb, n)
+    if meter:
+        _count_payload(meter, len(data), len(payload), seg_meta, fields, nb)
     ticker = _ticker(show_progress, nb * n)
     streams = []
     if resume_path is not None:
@@ -499,6 +517,8 @@ def _decompress(archive, dictionary, device, meter, show_progress):
     trans = make_transcoder(cfg, g, dev)
     vforce = _vocab_force(vocab)
     fields = _block_fields(seg_meta, nb, n)
+    if meter:
+        _count_payload(meter, orig_len, payload_len, seg_meta, fields, nb)
     ticker = _ticker(show_progress, nb * n)
     out_parts = [None] * nb
     for lo in range(0, nb, eb):
@@ -523,7 +543,7 @@ def _decompress(archive, dictionary, device, meter, show_progress):
     payload = b"".join(out_parts)[:payload_len]
     if seg_meta is not None:
         with sp("transform"):
-            payload = wrt.untransform(payload, seg_meta, d)
+            payload = wrt.untransform(payload, seg_meta, d, sp)
     if len(payload) != orig_len:
         raise FormatError(
             f"decoded length {len(payload)} != {orig_len} (corrupt "

@@ -41,16 +41,28 @@ the report or ``Meter.t``):
           compact      its compaction on the host (phase host)
           readback     the final coder and history brought to the host
 
+  ``transform`` holds ``jpeg_recode`` (encode) or ``jpeg_restore``
+  (decode) around each recoded JPEG's coefficient planes.
+
 * ``replay_ms``: {call: [device ms of each graph replay]}, from a timing
   event on the stream before a segment's first replay and one after each
   replay (``engine._Segments``), read when the segment drains;
 * ``part_ms``: {call: [{part: device ms}]}, one record a coding group: the
   six parts of its last replay (``engine.PARTS``: predict, coder, update,
-  state, lstm, copyback), timed by event nodes captured in the graph.
+  state, lstm, copyback), timed by event nodes captured in the graph; with
+  GRID2, JPEGX or LMS on also ``routed`` (``engine.ROUTED``), the routed
+  work's device ms, taken out of the parts it runs in;
+* ``counts``: {call: {name: n}}, the call's counters (``count``):
+  ``runner.compress``/``decompress`` count ``in_bytes``, ``payload_bytes``,
+  ``seg_bytes.<kind>`` (payload bytes by segment kind) and
+  ``lanes.<kind>`` (real lanes by block kind), the kinds named as
+  ``runner.SEG_KINDS`` (``wrt``'s ``SEG_*`` names, lowercased).
 
-Both device records stay empty on the eager step.  ``CALLS`` holds the
-Meters of the last ``CALLS_KEPT`` finished ``compress``/``decompress``
-calls that were given one; nothing is written unless ``--profile`` asks.
+Both device records stay empty on the eager step.  The counters go into
+``spans.json`` and the ``--stats`` report (``counts``, summed over the
+Meter's calls).  ``CALLS`` holds the Meters of the last ``CALLS_KEPT``
+finished ``compress``/``decompress`` calls that were given one; nothing is
+written unless ``--profile`` asks.
 
 The byte-step profiler (not in the JAX package):
 
@@ -77,13 +89,13 @@ activities (the tracer slows the host and the graph's launches, so the
 traced wall is printed apart) and prints one JSON line: wall ms per step,
 device busy ms per step (the sum of the device's kernel, copy and fill
 times on the one stream, from the trace), the graph's median replay ms
-and its six parts' ms (the timed segment's events; None on the eager
-step), host operator calls and kernel launches per step,
-kernels run on the device per step, the top operators by host time and
-the top kernels by device time, and always the two DMC kernels' launches
-and device ms per step (``dmc_kernels``, zero where the step launched
-none).  Needs a CUDA device; the numbers are the card's, printed beside
-its name.
+and its parts' ms (the six, and ``routed`` under the routed gate sets;
+the timed segment's events; None on the eager step), host operator calls
+and kernel launches per step, kernels run on the device per step, the top
+operators by host time and the top kernels by device time, and always the
+two DMC kernels' launches and device ms per step (``dmc_kernels``, zero
+where the step launched none).  Needs a CUDA device; the numbers are the
+card's, printed beside its name.
 """
 
 import argparse
@@ -158,6 +170,7 @@ class Meter:
         self.spans = []
         self.replay_ms = {}
         self.part_ms = {}
+        self.counts = {}
         self._open = []
         self._calls = 0
 
@@ -207,11 +220,17 @@ class Meter:
         """{part: device ms} of a coding group's last replay."""
         self.part_ms.setdefault(self._call_id(), []).append(parts)
 
+    def count(self, name, n):
+        """Add ``n`` to the open call's counter ``name``."""
+        c = self.counts.setdefault(self._call_id(), {})
+        c[name] = c.get(name, 0) + int(n)
+
     def export(self):
         """The spans and counters as one JSON-ready dict (``spans.json``)."""
         return {"spans": [s._asdict() for s in self.spans],
                 "replay_ms": {str(k): v for k, v in self.replay_ms.items()},
                 "part_ms": {str(k): v for k, v in self.part_ms.items()},
+                "counts": {str(k): v for k, v in self.counts.items()},
                 "phases_s": dict(self.t), "bytes": self.bytes,
                 "out_bytes": self.out_bytes, "segments": self.segments}
 
@@ -222,6 +241,9 @@ class Meter:
     def report(self, extra=None):
         total = sum(self.t.values())
         dev = self.t.get("device", 0.0)
+        counts = collections.Counter()
+        for c in self.counts.values():
+            counts.update(c)
         r = {
             "bytes": self.bytes,
             "out_bytes": self.out_bytes,
@@ -230,6 +252,7 @@ class Meter:
             "phases_s": {k: round(v, 3) for k, v in self.t.items()},
             "mb_s": round(self.bytes / max(total, 1e-9) / 2**20, 5),
             "device_mb_s": round(self.bytes / max(dev, 1e-9) / 2**20, 5),
+            "counts": dict(counts),
         }
         if self.bytes and self.out_bytes:
             r["bpb"] = round(8.0 * self.out_bytes / self.bytes, 4)

@@ -388,6 +388,33 @@ def test_meter_times_each_replay_and_the_steps_parts(gpu, gates):
     assert len(d.replay_ms[0]) == 2 * 128 and len(d.part_ms[0]) == 2
 
 
+@pytest.mark.parametrize("gates", [{}, {"PORT": 1}])
+def test_meter_times_the_routed_part_on_routed_content(gpu, gates):
+    """The routed fixture (x86 code, a 24-bit image, audio and a JPEG) in
+    one group through runner.compress with a Meter: its routed gates
+    (GRID2 and JPEGX, and LMS=2 outside PORT) add the ``routed`` part
+    after ``predict``, and the seven parts sum to within 2% of the group's
+    last replay; the archive is the one coded without a Meter and decodes
+    exactly with one.  Text keeps exactly the six parts
+    (``test_meter_times_each_replay_and_the_steps_parts``)."""
+    from cmix_tpu_torch.utils.profiling import Meter
+    cfg = E.EngineConfig(**GRAPH_KW)
+    with open(chip_smoke.ROUTED_FIXTURE, "rb") as f:
+        data = f.read()
+    kw = dict(max_batch=64, gates=gates, device=gpu)
+    arc = runner.compress(data, cfg, **kw)
+    m = Meter()
+    assert runner.compress(data, cfg, meter=m, **kw) == arc
+    (p,) = m.part_ms[0]
+    assert list(p) == [E.PARTS[0], E.ROUTED, *E.PARTS[1:]]
+    assert min(p.values()) > 0
+    last = m.replay_ms[0][-1]
+    assert abs(sum(p.values()) - last) <= 0.02 * last, (p, last)
+    d = Meter()
+    assert runner.decompress(arc, device=gpu, meter=d) == data
+    assert list(d.part_ms[0][0]) == list(p)
+
+
 def test_timed_graph_replays_once_a_step(gpu):
     """The timed segment keeps one CUDAGraph.replay call a step (what the
     benchmark's trace counts), and its outputs are the untimed graph's."""

@@ -38,7 +38,8 @@ def _report(err):
 
 def test_stats_reports_the_jax_packages_keys(tmp_path, capsys):
     """The same small input through both CLIs on the CPU: one JSON line
-    on stderr each way, with the same keys and phases; the port's counts
+    on stderr each way, with the same keys and phases, and beside them the
+    port's counters (``counts``, the same both ways); the port's counts
     every segment and the archive's bits per byte."""
     from cmix_tpu import runner as jr
     src = tmp_path / "in.txt"
@@ -59,7 +60,10 @@ def test_stats_reports_the_jax_packages_keys(tmp_path, capsys):
         assert (tmp_path / name).read_bytes() == src.read_bytes()
     for mode in ("", " d"):
         jax_r, port_r = reports["jax" + mode], reports["port" + mode]
-        assert set(port_r) == set(jax_r)
+        assert set(port_r) == set(jax_r) | {"counts"}
+        # text without a dictionary: one raw segment, two raw lanes
+        assert port_r["counts"] == {"in_bytes": 128, "payload_bytes": 128,
+                                    "seg_bytes.raw": 128, "lanes.raw": 2}
         assert set(port_r["phases_s"]) == set(jax_r["phases_s"])
         assert port_r["mode"] == jax_r["mode"]
         assert port_r["bytes"] == jax_r["bytes"] == 128
