@@ -1,22 +1,21 @@
-"""Dictionary mode on top of the content-routed gates: the routed
-fixture's x86 code (no text) coded with a dictionary under PORT=1 at tiny
-widths.  WRTW=1 is routed whatever the transform (the payload was
-transformed and a dictionary given), so the archive carries X86X=2 and
-WRTW=1 and the replay runs under that ensemble; the two packages write the
-same archive, which the port decodes.  ``make_gates`` takes WRTW on top of
-every gate set the port runs."""
+"""Dictionary mode on top of the content-routed gates: the routed fixture's
+x86 code (no text) coded with a dictionary under PORT=1 at tiny widths.
+WRTW=1 is routed whatever the transform (the payload was transformed and a
+dictionary given), so the archive carries X86X=2 and WRTW=1 and the replay
+runs under that ensemble; the port writes the JAX package's archive (the
+golden ``dict_routed``; ``RUN_SLOW=1 pytest tests/test_torch_goldens.py``
+re-derives it) and decodes it.  ``make_gates`` takes WRTW on top of every
+gate set the port runs."""
 
 import struct
 
 import pytest
 
 import chip_smoke
-from cmix_tpu import engine as je
-from cmix_tpu.utils import checkpoint as jck
 from cmix_tpu_torch import engine as E
 from cmix_tpu_torch import runner
 from cmix_tpu_torch.utils import checkpoint
-from torch_parity import jax_runner_gates
+from torch_parity import jax_golden
 
 TINY = dict(block_size=16, seg_size=16, tbits=10, mbits=10, ibits=8,
             pbits=10, lstm_hidden=8, lstm_horizon=2, dmc_nodes=4096)
@@ -36,7 +35,6 @@ def test_wrtw_is_accepted_on_every_gate_set(env):
 
 
 def test_routed_content_with_a_dictionary_matches_jax(tmp_path, monkeypatch):
-    monkeypatch.setattr(jck, "CACHE_DIR", str(tmp_path / "jax"))
     monkeypatch.setattr(checkpoint, "CACHE_DIR", str(tmp_path / "port"))
     # the routed fixture's x86 part (torch_parity.make_routed_input), and
     # mini.dic's first 20 words (72 B: an 80-step replay at 16-byte blocks)
@@ -45,8 +43,8 @@ def test_routed_content_with_a_dictionary_matches_jax(tmp_path, monkeypatch):
     dic = tmp_path / "words.dic"
     with open(chip_smoke.DICT_FILE, "rb") as f:
         dic.write_bytes(b"".join(f.readlines()[:20]))
-    with jax_runner_gates({"PORT": 1}) as jr:
-        aj = jr.compress(data, je.EngineConfig(**TINY), dictionary=str(dic))
+    aj = jax_golden("dict_routed", data, config=TINY, gates={"PORT": 1},
+                    dictionary=str(dic))
     at = runner.compress(data, E.EngineConfig(**TINY), dictionary=str(dic),
                          gates={"PORT": 1}, device="cpu")
     off = 4 + runner._HDR_LEN

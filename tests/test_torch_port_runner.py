@@ -1,15 +1,16 @@
 """The portable profile's archives across the two packages on the CPU:
-``cmix_tpu`` and ``cmix_tpu_torch`` write byte-identical PORT=1 archives
-of the same input and config, and each decodes the other's exactly; and
-``--portable`` on the port's CLI."""
+``cmix_tpu_torch`` writes the JAX package's PORT=1 archive of the same
+input and config (the golden ``port_runner``) byte for byte and decodes
+it exactly; the archives being equal, ``RUN_SLOW=1 pytest
+tests/test_torch_goldens.py`` has the JAX package decode it, which is the
+other direction.  And ``--portable`` on the port's CLI."""
 
 import struct
 
 import torch_parity  # noqa: F401  (one torch thread per worker)
-from cmix_tpu import engine as je
 from cmix_tpu_torch import engine as E
 from cmix_tpu_torch import runner
-from torch_parity import RUNNER_KW, jax_runner_gates
+from torch_parity import RUNNER_KW, jax_golden
 
 
 def test_port_archives_cross_decode_both_ways():
@@ -17,13 +18,11 @@ def test_port_archives_cross_decode_both_ways():
     # group of two padded with a dummy lane
     with open("testdata/text100k.raw", "rb") as f:
         data = f.read()[3000:3300]
-    with jax_runner_gates({"PORT": 1}) as jr:
-        a_jax = jr.compress(data, je.EngineConfig(**RUNNER_KW), max_batch=3)
-        a_port = runner.compress(data, E.EngineConfig(**RUNNER_KW),
-                                 max_batch=3, gates={"PORT": 1},
-                                 device="cpu")
-        assert a_port == a_jax
-        assert jr.decompress(a_port) == data
+    a_jax = jax_golden("port_runner", data, config=RUNNER_KW,
+                       gates={"PORT": 1}, max_batch=3)
+    a_port = runner.compress(data, E.EngineConfig(**RUNNER_KW), max_batch=3,
+                             gates={"PORT": 1}, device="cpu")
+    assert a_port == a_jax
     assert runner.decompress(a_jax, device="cpu") == data
     # the record says what it is: PORT=1, exec batch 3, five coded blocks
     off = 4 + runner._HDR_LEN

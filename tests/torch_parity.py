@@ -4,7 +4,11 @@ Not a test module: the test files import it (pytest puts tests/ on the path).
 """
 
 import contextlib
+import hashlib
+import json
+import os
 import struct
+import subprocess
 import sys
 
 import jax
@@ -225,21 +229,19 @@ RUNNER_KW = dict(block_size=64, seg_size=64, tbits=12, mbits=12, ibits=10,
 SIZE_TOL = 0.01
 
 
-def check_runner_against_jax(env, horizon=4):
-    """compress 5 text blocks with both packages at exec batch 3 (the
-    second group padded with a dummy lane), RUNNER_KW's widths at LSTM
-    horizon ``horizon`` -> the same header, gate record and length-table
-    flags, coded size within SIZE_TOL; the port's archive decodes exactly.
-    Returns the relative size gap."""
-    from cmix_tpu import engine as je
-    from cmix_tpu import runner as jr
+def check_runner_against_jax(case, env, horizon=4):
+    """compress 5 text blocks with the port at exec batch 3 (the second
+    group padded with a dummy lane), RUNNER_KW's widths at LSTM horizon
+    ``horizon``, against the JAX package's archive (golden ``case``) -> the
+    same header, gate record and length-table flags, coded size within
+    SIZE_TOL; the port's archive decodes exactly.  Returns the relative
+    size gap."""
     from cmix_tpu_torch import engine as te
     from cmix_tpu_torch import runner as tr
     kw = dict(RUNNER_KW, lstm_horizon=horizon)
     with open("testdata/text100k.raw", "rb") as f:
         data = f.read()[1000:1320]
-    with jax_runner_gates(env):
-        aj = jr.compress(data, je.EngineConfig(**kw), max_batch=3)
+    aj = jax_golden(case, data, config=kw, gates=env, max_batch=3)
     at = tr.compress(data, te.EngineConfig(**kw), max_batch=3, gates=env,
                      device="cpu")
     off = 4 + tr._HDR_LEN
@@ -274,7 +276,7 @@ def archive_sizes(env, nbytes, block):
     return len(aj), len(at)
 
 
-# ---- the portable profile: the JAX package's archives, PORT=1
+# ---- the JAX package's runner under a gate set
 
 
 @contextlib.contextmanager
@@ -292,27 +294,6 @@ def jax_runner_gates(env):
     finally:
         je.apply_gates(prev)
         jr._TRANSCODER_CACHE.clear()
-
-
-def jax_port_archive(data, small, batch, decode=False):
-    """The JAX package's PORT=1 archive of ``data`` at ``small``'s widths
-    in groups of ``batch``, and (``decode``) its decode of that archive in
-    the same compile (else None)."""
-    from cmix_tpu import engine as je
-    with jax_runner_gates({"PORT": 1}) as jr:
-        arc = jr.compress(data, je.EngineConfig(**small), max_batch=batch)
-        return arc, jr.decompress(arc) if decode else None
-
-
-def port_fixture(small=None):
-    """(input bytes, the JAX package's PORT=1 archive of it) for the
-    committed fixture that chip_smoke.py decodes and re-encodes, at
-    ``small``'s widths (``chip_smoke.PORT_SMALL`` by default)."""
-    import chip_smoke
-    with open(chip_smoke.PORT_FIXTURE, "rb") as f:
-        data = f.read()
-    return data, jax_port_archive(data, small or chip_smoke.PORT_SMALL,
-                                  chip_smoke.PORT_BATCH)[0]
 
 
 # ---- the routed fixture: x86 code, a 24-bit BMP, a WAV and a baseline JPEG
@@ -413,66 +394,6 @@ def make_gated_input():
             + rows + b"Rows marked late were counted twice.\n")
 
 
-def gated_fixture():
-    """(input bytes, the JAX package's PORT=1 archive of it) for the
-    committed gated fixture: every off-by-default mechanism of the portable
-    profile, JVAL=2 routed by JVAL_ROUTE."""
-    import chip_smoke
-    from cmix_tpu import engine as je
-    from cmix_tpu_torch.utils.profiling import GATED_PORT
-    with open(chip_smoke.GATED_FIXTURE, "rb") as f:
-        data = f.read()
-    with chip_smoke.EnvVar("JVAL_ROUTE", chip_smoke.JVAL_ROUTE), \
-            jax_runner_gates(GATED_PORT) as jr:
-        arc = jr.compress(data, je.EngineConfig(**chip_smoke.GATED_SMALL),
-                          max_batch=chip_smoke.GATED_BATCH)
-    return data, arc
-
-
-def routed_fixture():
-    """(input bytes, the JAX package's PORT=1 archive of it) for the
-    committed routed fixture that chip_smoke.py decodes and re-encodes."""
-    import chip_smoke
-    from cmix_tpu import engine as je
-    with open(chip_smoke.ROUTED_FIXTURE, "rb") as f:
-        data = f.read()
-    with jax_runner_gates({"PORT": 1}) as jr:
-        arc = jr.compress(data, je.EngineConfig(**chip_smoke.ROUTED_SMALL),
-                          max_batch=chip_smoke.ROUTED_BATCH)
-    return data, arc
-
-
-def routed_nojpegc_fixture():
-    """(input bytes, the JAX package's PORT=1 archive of it under
-    CMIX_JPEGC=0) for the committed fixture that chip_smoke.py decodes and
-    re-encodes: the routed fixture with its JPEG kept as a pass-through
-    segment, at ROUTED_SMALL's widths in one group."""
-    import chip_smoke
-    from cmix_tpu import engine as je
-    with open(chip_smoke.ROUTED_FIXTURE, "rb") as f:
-        data = f.read()
-    with chip_smoke.EnvVar("CMIX_JPEGC", "0"), \
-            jax_runner_gates({"PORT": 1}) as jr:
-        arc = jr.compress(data, je.EngineConfig(**chip_smoke.ROUTED_SMALL),
-                          max_batch=chip_smoke.ROUTED_BATCH)
-    return data, arc
-
-
-def knobs_fixture():
-    """(input bytes, the JAX package's PORT=1 archive of it under
-    ``utils/profiling.KNOBS``) for the committed knobs fixture: the gated
-    fixture's input at its small widths, one group."""
-    import chip_smoke
-    from cmix_tpu import engine as je
-    from cmix_tpu_torch.utils.profiling import KNOBS
-    with open(chip_smoke.GATED_FIXTURE, "rb") as f:
-        data = f.read()
-    with jax_runner_gates(dict(KNOBS, PORT=1)) as jr:
-        arc = jr.compress(data, je.EngineConfig(**chip_smoke.GATED_SMALL),
-                          max_batch=chip_smoke.GATED_BATCH)
-    return data, arc
-
-
 # ---- the bench (cmix_tpu_torch/bench.py against bench.py's drive)
 
 # RUNNER_KW's widths in 128-byte blocks of two 64-step segments, so that
@@ -488,13 +409,13 @@ def bench_blocks():
     return raw[::64, :BENCH_KW["block_size"]].tobytes()
 
 
-def jax_bench_encode(data, env):
-    """(out, out_len) of ``cmix_tpu``'s transcoder on ``data`` at BENCH_KW
+def jax_bench_encode(data, env, config):
+    """(out, out_len) of ``cmix_tpu``'s transcoder on ``data`` at ``config``
     with ``env``'s gates, driven as bench.py drives it (``get_transcoder``,
     ``_group_state``, ``_split_blocks``; one coding group)."""
     from cmix_tpu import engine as je
     with jax_runner_gates(env) as jr:
-        cfg = je.EngineConfig(**BENCH_KW)
+        cfg = je.EngineConfig(**config)
         blocks = jr._split_blocks(data, cfg.block_size)
         b = blocks.shape[0]
         sh, pb = jr._group_state(cfg, b)
@@ -505,62 +426,205 @@ def jax_bench_encode(data, env):
         return np.asarray(out), np.asarray(out_len)
 
 
-if __name__ == "__main__" and sys.argv[1:] == ["--write-knobs-fixture"]:
-    # python tests/torch_parity.py --write-knobs-fixture: (re)write the
-    # JAX package's PORT=1 archive of the gated fixture under KNOBS
-    import chip_smoke
-    data, arc = knobs_fixture()
-    with open(chip_smoke.KNOBS_ARCHIVE, "wb") as f:
-        f.write(arc)
-    print(f"{chip_smoke.KNOBS_ARCHIVE}: {len(arc)} bytes")
-elif __name__ == "__main__" and sys.argv[1:] == ["--write-routed-fixture"]:
-    # python tests/torch_parity.py --write-routed-fixture: (re)write the
-    # routed fixture's input (needs PIL) and the JAX package's archive of it
-    import chip_smoke
-    data = make_routed_input()
-    with open(chip_smoke.ROUTED_FIXTURE, "wb") as f:
-        f.write(data)
-    _, arc = routed_fixture()
-    with open(chip_smoke.ROUTED_ARCHIVE, "wb") as f:
-        f.write(arc)
-    print(f"{chip_smoke.ROUTED_FIXTURE}: {len(data)} bytes; "
-          f"{chip_smoke.ROUTED_ARCHIVE}: {len(arc)} bytes")
-elif __name__ == "__main__" and sys.argv[1:] == [
-        "--write-routed-nojpegc-fixture"]:
-    # python tests/torch_parity.py --write-routed-nojpegc-fixture: (re)write
-    # the JAX package's PORT=1 archive of the routed fixture, CMIX_JPEGC=0
-    import chip_smoke
-    _, arc = routed_nojpegc_fixture()
-    with open(chip_smoke.ROUTED_NOJPEGC_ARCHIVE, "wb") as f:
-        f.write(arc)
-    print(f"{chip_smoke.ROUTED_NOJPEGC_ARCHIVE}: {len(arc)} bytes")
-elif __name__ == "__main__" and sys.argv[1:] == ["--write-gated-fixture"]:
-    # python tests/torch_parity.py --write-gated-fixture: (re)write the gated
-    # fixture's input and the JAX package's PORT=1 archive of it
-    import chip_smoke
-    with open(chip_smoke.GATED_FIXTURE, "wb") as f:
-        f.write(make_gated_input())
-    data, arc = gated_fixture()
-    with open(chip_smoke.GATED_ARCHIVE, "wb") as f:
-        f.write(arc)
-    print(f"{chip_smoke.GATED_FIXTURE}: {len(data)} bytes; "
-          f"{chip_smoke.GATED_ARCHIVE}: {len(arc)} bytes")
-elif __name__ == "__main__" and sys.argv[1:] == ["--write-fixture"]:
-    # python tests/torch_parity.py --write-fixture: (re)write the portable
-    # fixture's archive with the JAX package on the CPU
-    import chip_smoke
-    _, arc = port_fixture()
-    with open(chip_smoke.PORT_ARCHIVE, "wb") as f:
-        f.write(arc)
-    print(f"{chip_smoke.PORT_ARCHIVE}: {len(arc)} bytes")
-elif __name__ == "__main__" and sys.argv[1:] == ["--write-h8-fixture"]:
-    # python tests/torch_parity.py --write-h8-fixture: (re)write the
-    # portable fixture's archive at LSTM horizon 8 with the JAX package
-    import chip_smoke
-    _, arc = port_fixture(chip_smoke.PORT_H8_SMALL)
-    with open(chip_smoke.PORT_H8_ARCHIVE, "wb") as f:
-        f.write(arc)
-    print(f"{chip_smoke.PORT_H8_ARCHIVE}: {len(arc)} bytes")
+# ---- the JAX package's archives as committed goldens
+#
+# ``cmix_tpu`` is frozen, so its archive of fixed bytes under a fixed call
+# is a constant.  testdata/jax_goldens.json holds one entry per case: the
+# input (slices of committed files), the call (``compress`` at a config
+# with its gates, environment, ``max_batch`` and dictionary; the bench's
+# ``transcoder``; the ``cli`` in a subprocess), and the archive's sha256,
+# length and committed file.  Tests take the archive from ``jax_golden``;
+# tests/test_torch_goldens.py pins the frozen sources and package versions
+# and, under RUN_SLOW=1, re-derives every golden with the JAX package.  The
+# pin does not see the derivation's own code here (``derive_golden``,
+# ``jax_bench_encode``, ``jax_runner_gates``, ``cli_env``, ``run_cli``) or
+# the environment (``XLA_FLAGS``): after a change to either, run
+# ``--write-goldens`` and then the RUN_SLOW test.  A new case: add its entry
+# without the derived fields, then ``JAX_PLATFORMS=cpu PYTHONPATH=. python
+# tests/torch_parity.py --write-goldens CASE``.
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDENS = os.path.join(ROOT, "testdata", "jax_goldens.json")
+# the JAX package's sources: its tree and the native library it builds
+FROZEN = ("cmix_tpu", os.path.join("native", "preproc.cpp"))
+# the installed packages the goldens were written under (numpy: the JAX
+# package's host JPEG recode and WRT run on it)
+FROZEN_VERSIONS = ("jax", "jaxlib", "numpy")
+# an entry's call fields, as a test states them (the rest take these)
+CALL = dict(call="compress", config=None, args=None, gates={}, env={},
+            max_batch=None, dictionary=None)
+
+
+def sha256(data):
+    return hashlib.sha256(data).hexdigest()
+
+
+def goldens():
+    with open(GOLDENS) as f:
+        return json.load(f)
+
+
+def read_parts(parts):
+    """The bytes of an entry's input: its [path, start, stop] slices of
+    committed files (``stop`` null: to the end), joined."""
+    out = []
+    for path, start, stop in parts:
+        with open(os.path.join(ROOT, path), "rb") as f:
+            out.append(f.read()[start:stop])
+    return b"".join(out)
+
+
+def freeze_digest():
+    """(sha256 over the frozen sources in sorted path order: each path and
+    the sha256 of its bytes; the number of files).  Build outputs and
+    bytecode are not sources."""
+    paths = []
+    for top in FROZEN:
+        if os.path.isfile(os.path.join(ROOT, top)):
+            paths.append(top)
+        for d, dirs, files in os.walk(os.path.join(ROOT, top)):
+            dirs[:] = [x for x in dirs if x != "__pycache__"]
+            paths += [os.path.relpath(os.path.join(d, x), ROOT) for x in files
+                      if not x.endswith((".pyc", ".so"))]
+    h = hashlib.sha256()
+    for rel in sorted(paths):
+        with open(os.path.join(ROOT, rel), "rb") as f:
+            h.update(rel.encode() + b"\0" + hashlib.sha256(f.read()).digest())
+    return h.hexdigest(), len(paths)
+
+
+def jax_golden(case, data, **call):
+    """The JAX package's committed archive for golden ``case``, after
+    asserting that ``data`` and the test's ``call`` (the fields of CALL it
+    sets; ``dictionary`` a path) are the entry's and that the file has the
+    entry's sha256 and length.  RUN_SLOW=1 pytest
+    tests/test_torch_goldens.py re-derives it with the JAX package."""
+    e = goldens()["cases"][case]
+    assert sha256(data) == e["input_sha256"], case
+    want = json.loads(json.dumps(dict(CALL, **call)))
+    dic = want.pop("dictionary")
+    assert {k: e[k] for k in want} == want, case
+    if dic is None:
+        assert e["dictionary"] is None, case
+    else:
+        with open(dic, "rb") as f:
+            assert f.read() == read_parts(e["dictionary"]), case
+    with open(os.path.join(ROOT, e["file"]), "rb") as f:
+        arc = f.read()
+    assert (sha256(arc), len(arc)) == (e["sha256"], e["length"]), case
+    return arc
+
+
+def jax_golden_streams(case, data, **call):
+    """(out, out_len) of a ``transcoder`` golden: its file holds the streams
+    cut to their lengths, then the lengths as little-endian int64."""
+    blob = jax_golden(case, data, call="transcoder", **call)
+    b = len(data) // call["config"]["block_size"]
+    out_len = np.frombuffer(blob[-8 * b:], "<i8")
+    return np.frombuffer(blob[:-8 * b], np.uint8).reshape(b, -1), out_len
+
+
+def cli_env(**env):
+    """A subprocess environment for either package's CLI: no gate or route
+    switch of the caller's, the CPU, one thread, ``env`` on top."""
+    from cmix_tpu_torch import engine as E
+    out = {k: v for k, v in os.environ.items() if k not in E.GATE_NAMES
+           and k not in ("JVAL_ROUTE", "WRTW_ROUTE", "CMIX_JPEGC")}
+    out.update(JAX_PLATFORMS="cpu", PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out.update(env)
+    return out
+
+
+def run_cli(package, args, env):
+    """``python -m <package>.runner <args>`` in ``env``; it must exit 0."""
+    p = subprocess.run([sys.executable, "-m", f"{package}.runner"] + args,
+                       env=env, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    assert p.returncode == 0, p.stderr[-3000:]
+
+
+def derive_golden(e, tmp):
+    """The JAX package's archive for entry ``e``, computed now (files and
+    pretraining caches under the directory ``tmp``), and its decode of that
+    archive where the entry asks for one (``decode``: the decode's keyword
+    arguments; the ``cli`` decodes in an environment without the gates),
+    else None."""
+    from cmix_tpu import engine as je
+    from cmix_tpu.utils import checkpoint as jck
+    data = read_parts(e["input"])
+    dec = e["decode"]
+    if e["call"] == "cli":
+        src, arc, back = (os.path.join(tmp, n)
+                          for n in ("in.txt", "j.tcmx", "j.out"))
+        with open(src, "wb") as f:
+            f.write(data)
+        run_cli("cmix_tpu", ["c", src, arc] + e["args"], cli_env(**e["env"]))
+        if dec is not None:
+            run_cli("cmix_tpu", ["d", arc, back], cli_env())
+            with open(back, "rb") as f:
+                dec = f.read()
+        with open(arc, "rb") as f:
+            return f.read(), dec
+    if e["call"] == "transcoder":
+        out, out_len = jax_bench_encode(data, e["gates"], e["config"])
+        keep = np.arange(out.shape[1])[None, :] < out_len[:, None]
+        return (np.where(keep, out, 0).astype(np.uint8).tobytes()
+                + out_len.astype("<i8").tobytes()), None
+    kw = {} if e["max_batch"] is None else {"max_batch": e["max_batch"]}
+    dkw = {}
+    if e["dictionary"] is not None:
+        dkw["dictionary"] = os.path.join(tmp, "golden.dic")
+        with open(dkw["dictionary"], "wb") as f:
+            f.write(read_parts(e["dictionary"]))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jck, "CACHE_DIR", os.path.join(tmp, "cache"))
+        for k, v in e["env"].items():
+            mp.setenv(k, v)
+        with jax_runner_gates(e["gates"]) as jr:
+            arc = jr.compress(data, je.EngineConfig(**e["config"]), **kw,
+                              **dkw)
+            if dec is not None:
+                dec = jr.decompress(arc, **dec, **dkw)
+    return arc, dec
+
+
+def write_goldens(cases=()):
+    """Derive ``cases`` (all by default) with the JAX package and write their
+    files and derived fields; the freeze digest is recorded only when every
+    case is written, and a subset is written only under the recorded one."""
+    import importlib.metadata
+    import tempfile
+    table = goldens()
+    digest, nfiles = freeze_digest()
+    if cases:
+        assert table["freeze"]["sha256"] == digest, (
+            "the JAX package changed: write every case")
+    else:
+        cases = list(table["cases"])
+        table["freeze"] = dict(
+            sha256=digest, files=nfiles,
+            **{m: importlib.metadata.version(m) for m in FROZEN_VERSIONS})
+    for case in cases:
+        e = table["cases"][case]
+        data = read_parts(e["input"])
+        with tempfile.TemporaryDirectory() as tmp:
+            arc, back = derive_golden(e, tmp)
+        assert back in (None, data), f"{case}: the JAX package's decode"
+        e.update(input_sha256=sha256(data), sha256=sha256(arc),
+                 length=len(arc))
+        os.makedirs(os.path.dirname(os.path.join(ROOT, e["file"])),
+                    exist_ok=True)
+        with open(os.path.join(ROOT, e["file"]), "wb") as f:
+            f.write(arc)
+        print(f"{case}: {e['file']}, {len(arc)} bytes")
+    with open(GOLDENS, "w") as f:
+        f.write(json.dumps(table, indent=1) + "\n")
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--write-goldens"]:
+    # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_parity.py
+    # --write-goldens [CASE ...]: (re)write the JAX package's goldens
+    write_goldens(sys.argv[2:])
 elif __name__ == "__main__":
     # python tests/torch_parity.py [nbytes] [block]: the archive size gap
     # between the port and the JAX package on the CPU, both gate sets
