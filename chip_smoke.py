@@ -41,47 +41,45 @@ without one.  Phases, each of which raises on failure:
    CLI's above 256 KiB of input): exact round trip, identical re-encode,
    launches > 0 both ways, horizon 8 in the header;
 5. the portable profile (PORT=1) across devices: the JAX package's
-   committed archive ``testdata/portable.tcmx`` decodes exactly on the
+   committed archive of the golden ``portable`` decodes exactly on the
    card, and the card's and the CPU's encodes of its input are both
    byte-identical to it; the card's archive decodes exactly on the CPU;
-   the same for its archive at LSTM horizon 8,
-   ``testdata/portable_h8.tcmx``;
-6. the portable profile at the CLI widths on a text prefix: exact round
-   trip, identical re-encode, launch counts > 0 both ways, and the archive
-   byte-identical to the JAX package's CPU archive (by its sha256);
+   the same for its archive at LSTM horizon 8, the golden ``portable_h8``;
+6. the portable profile at the CLI widths on a text prefix (the golden
+   ``port_cli``): exact round trip, identical re-encode, launch counts > 0
+   both ways, and the archive byte-identical to the JAX package's;
 7. the content-routed path on ``testdata/routed.raw`` (x86 code, a 24-bit
    BMP, a WAV and a baseline JPEG: the E8/E9, color and JPEG transforms,
    the segment table and the routed gates X86X=2, GRID2=1, LMS=2, JPEGX=1):
    the fast profile at CLI widths (exact round trip, identical re-encode,
    launches > 0 both ways, the routed gates in the archive's gate record)
-   and at small widths against the CPU's archive (sizes within 1%); the
-   JAX package's PORT=1 archive ``testdata/routed.tcmx`` decoded and
-   re-encoded byte-identically on the card and on the CPU; and the
-   portable profile at CLI widths, its archive held to the JAX package's
-   sha256; then under CMIX_JPEGC=0 (the JPEG a pass-through segment, no
-   JPEGX): the JAX package's PORT=1 archive ``testdata/routed_nojpegc.tcmx``
-   decoded and re-encoded byte-identically on the card and on the CPU, and
-   the fast profile at CLI widths (gate record X86X=2;LMS=2;GRID2=1);
+   and at the golden ``routed``'s small widths against the CPU's archive
+   (sizes within 1%); that golden decoded and re-encoded byte-identically
+   on the card and on the CPU; and the portable profile at CLI widths, its
+   archive the golden ``routed_cli``; then under CMIX_JPEGC=0 (the JPEG a
+   pass-through segment, no JPEGX): the golden ``routed_nojpegc`` decoded
+   and re-encoded byte-identically on the card and on the CPU, and the fast
+   profile at CLI widths (gate record X86X=2;LMS=2;GRID2=1);
 8. the gated path on ``testdata/gated.raw`` (the routed fixture and ~1 KiB
    of text with table rows) under every off-by-default mechanism the port
    runs (``utils/profiling.GATED``: SSE2, APM3X, MIX_DYN4, MIX_KIND,
    MIX_AUX, SBANK_ADAPT, VMATCH, APM_FIXED, MIX_TAU, MIX_BOOST) with JVAL=2
    routed by JVAL_ROUTE: the fast profile at CLI widths (exact round trip,
    identical re-encode, launches > 0 both ways, every gate in the gate
-   record) and at small widths against the CPU's archive (sizes within
-   1%); the JAX package's PORT=1 archive ``testdata/gated.tcmx`` (of
-   ``GATED_PORT``, the mechanisms the portable profile allows) decoded and
-   re-encoded byte-identically on the card; the portable profile at CLI
-   widths, its archive held to the JAX package's sha256;
+   record) and at the golden ``gated``'s small widths against the CPU's
+   archive (sizes within 1%); that golden (of ``GATED_PORT``, the
+   mechanisms the portable profile allows) decoded and re-encoded
+   byte-identically on the card; the portable profile at CLI widths, its
+   archive the golden ``gated_cli``;
 9. the gates path on the gated fixture under the remaining gate values, two
    sets of ``utils/profiling.py``: LEAN (the default-on components off
    together) and KNOBS (the value knobs moved together, DMC_LEVELS=4 among
    them): per set the fast profile at CLI widths (exact round trip,
    identical re-encode, launches > 0 both ways, the set in the gate record)
    and at small widths against the CPU's archive (sizes within 0.1%), the
-   portable profile at CLI widths held to the JAX package's sha256; for
-   KNOBS the JAX package's PORT=1 archive ``testdata/knobs.tcmx`` decoded
-   and re-encoded byte-identically on the card;
+   portable profile at CLI widths, its archive the golden ``lean_cli`` or
+   ``knobs_cli``; for KNOBS the golden ``knobs`` decoded and re-encoded
+   byte-identically on the card;
 10. ``--resume`` on the card: a compress interrupted after its first coding
     group (the journal saver raises), then resumed: it codes only the other
     groups, writes the uninterrupted archive and removes the journal; a
@@ -94,8 +92,8 @@ without one.  Phases, each of which raises on failure:
    pretrains, its replay's seconds, ms per step and launches printed; the
    decode and a re-encode load the cache; exact round trip, identical
    re-encode, flags 3 and WRTW=1 in the gate record), then the portable
-   profile at CLI widths with an empty cache, its archive held to the JAX
-   package's sha256 and decoded exactly;
+   profile at CLI widths with an empty cache, its archive the golden
+   ``dict_cli``, decoded exactly;
 12. the sharded transcoder (``cmix_tpu_torch.parallel``: dp x tp on
     torch.distributed, ranks spawned as processes that share the card, each
     running the eager byte step): the dry run on 4 Gloo ranks (dp=2, tp=2,
@@ -107,53 +105,46 @@ without one.  Phases, each of which raises on failure:
     the unsharded archive); every replica of the
     shared state equal across ranks; each leg's ms per step, collective
     bytes per step, seconds and ``dmc_fused`` launches;
-13. ms per byte step as the transcoder runs it (one segment after one of
-    warm-up), through the captured graph and through the eager step: the
-    bench speed profile at B=256 and B=1 and bench widths, and the default
-    and portable profiles at B=16 and B=256, CLI widths, and the default
-    profile through the graph at B=64 (the CLI's group on a 4 MiB file)
-    and horizons 4 and 8; then through the graph at B=256 and CLI widths
-    with and without the gated path's mechanisms, each profile, and under
-    LEAN and KNOBS: wall, device busy, the median replay and its parts
-    (the device's events), and kernels per step
-    (``utils/profiling.py``);
-14. the graph (``engine.make_segment_fn``: one byte step captured as a
+13. the graph (``engine.make_segment_fn``: one byte step captured as a
     CUDA graph and replayed, the default on the card, so phases 4-11 ran
     through it): the main path's archives of phases 4 and 6 (fast and
     portable, CLI widths) and the gates path's fast archives of both sets
     (phase 9) against the eager step's, byte-identical (the portable one
     thus still the JAX package's); a dictionary replay at B=1
     through the graph and the eager step in both profiles, the states
-    equal (integer leaves exact, floats within 2e-5); wall ms (untraced
-    and traced), device busy ms and the graph's median replay ms per
-    step, graph and eager, at bench widths and gates, B=256 and B=1
-    (``utils/profiling.py``);
-    and the port's bench (``cmix_tpu_torch/bench.py`` ``run``) on one
-    segment (2048 steps x 256 lanes of bench4m.raw): a first encode, the
-    timed encode (its streams equal to the first's) and the timed decode
-    (exact) through one ``engine.make_transcoder`` with a Meter each,
-    2048 ``dmc_fused`` launches a pass, the reports and the run printed;
-15. a ``kernels:`` summary, the JSON kernel line, the card line, and last
+    equal (integer leaves exact, floats within 2e-5); and the port's
+    bench (``cmix_tpu_torch/bench.py`` ``run``) on one segment (2048
+    steps x 256 lanes of bench4m.raw): a first encode, the timed encode
+    (its streams equal to the first's) and the timed decode (exact)
+    through one ``engine.make_transcoder`` with a Meter each, 2048
+    ``dmc_fused`` launches a pass, the reports and the run printed;
+14. a ``kernels:`` summary, the JSON kernel line, the card line, and last
     the contract line ``{"ok": true, "device": {...}}``.
 
-Each coding path (4-12, 14) is driven with the kernels' launch counts set
-to 0 just before it and read just after (the sharded phase's ranks each
-around each of their transcodes); a graph's replays count the launches
-its capture recorded (the warm-up's launches, on copies of the state, and
-the capture's host calls are not counted).  The JSON line sums them (and
-gives the routed path's, its CMIX_JPEGC=0 legs', the gated path's, the
-gates path's, of them at walk depths 8 and 4, the dictionary path's, its
-pretraining's and the sharded phase's sums on their own).  Every phase
-prints its seconds.
+Every PORT=1 archive the card is held to is the JAX package's, a case of
+``testdata/jax_goldens.json`` (GOLDEN_CASES) read by name through
+``tests/golden_cases.py``: its input, config, gates, environment,
+``max_batch``, dictionary and archive.  A new card fixture is a new case
+there, never a constant here.  Each coding path (4-13) is driven with the
+kernels' launch counts set to 0 just before it and read just after (the
+sharded phase's ranks each around each of their transcodes); a graph's
+replays count the launches its capture recorded (the warm-up's launches,
+on copies of the state, and the capture's host calls are not counted).
+The JSON line sums them (and gives the routed path's, its CMIX_JPEGC=0
+legs', the gated path's, the gates path's, of them at walk depths 8 and
+4, the dictionary path's, its pretraining's and the sharded phase's sums
+on their own).  Every phase prints its seconds.  Step times and profiles
+are not its job: ``python -m cmix_tpu_torch.utils.profiling`` profiles a
+step, and ``portbench`` measures the cells' steps.
 """
 
-import hashlib
 import json
 import os
 import re
 import struct
 import sys
 import time
+from unittest import mock
 
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
@@ -164,6 +155,13 @@ F32_OPS_PER_S = 67e12           # H100 SXM, outside the tensor cores
 # clock
 INT32_MADS_PER_S = 64 * 132 * 1.98e9
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.append(os.path.join(ROOT, "tests"))
+import golden_cases  # noqa: E402  (the goldens' reader: no JAX, no torch)
+
+# the JAX package's archives the card is held to, by golden case
+GOLDEN_CASES = ("portable", "portable_h8", "routed", "routed_nojpegc",
+                "gated", "knobs", "port_cli", "routed_cli", "gated_cli",
+                "lean_cli", "knobs_cli", "dict_cli")
 # The coding paths' time is their byte steps (as many as the block has
 # bytes; a captured graph's replay on the card), the dictionary's replay
 # (one step per byte at B=1), the CPU legs' payload bytes and the graph
@@ -174,7 +172,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # fast main path: 4 KiB of text in 128-byte blocks (one group of 32 lanes)
 MAIN_KIB, MAIN_BLOCK = 4, 128
 SMALL_BLOCK = 128               # the CPU-vs-card size check, 1 KiB
-BENCH_STEPS = 32
 # the DMC kernels: checked and timed at every walk depth; device times over
 # REPS launches, with COLD copies of the tables cycled (4 GiB at B=256,
 # N=16384, 16 GiB at N=65536; a launch reads ~1 MB of a young machine's
@@ -183,7 +180,6 @@ BENCH_STEPS = 32
 LEVELS = range(1, 9)
 REPS, COLD = 200, 128
 LARGE_POOLS = (32768, 65536)
-STEP_STEPS = 8
 # the portable LSTM's update chain: checked at ILSTM_SHAPES (B, H, W) under
 # each optimizer of ILSTM_OPTS (ILSTM_ADAM, ILSTM_LRX), ILSTM_STEPS updates
 # from the init state; timed at ILSTM_TIMED (the cells' and bench.py's)
@@ -192,95 +188,16 @@ ILSTM_OPTS = {"sgd": (0, 4), "adam": (1, 4), "lrx9": (0, 9)}
 ILSTM_STEPS = 16
 ILSTM_TIMED = ((64, 256, 8), (256, 256, 4))
 # the graph phase: the bench-width segment (the block cut to one segment
-# of bench.py's 2048 steps), steps per profiled segment, and the bytes of
-# the dictionary that the graph-vs-eager replays replay (cut from all 600
-# B, 640 steps, to 256 steps when the gated path joined: the eager step
-# ran at 0.08-0.13 s a step there)
+# of bench.py's 2048 steps), and the bytes of the dictionary that the
+# graph-vs-eager replays replay (cut from all 600 B, 640 steps, to 256
+# steps when the gated path joined: the eager step ran at 0.08-0.13 s a
+# step there)
 BENCH_SEG = 2048
-PROFILE_STEPS = 8
 DICT_EAGER_BYTES = 128
-# the portable fixture: the JAX package's PORT=1 archive of PORT_FIXTURE,
-# made on the CPU at these small widths in one coding group
-# (tests/test_torch_port_fixture.py regenerates it and holds it equal)
-PORT_FIXTURE = os.path.join(ROOT, "testdata", "portable.raw")
-PORT_ARCHIVE = os.path.join(ROOT, "testdata", "portable.tcmx")
-PORT_SMALL = dict(block_size=256, seg_size=256, tbits=12, mbits=12,
-                  ibits=10, pbits=12, lstm_hidden=32, lstm_horizon=4,
-                  dmc_nodes=4096)
-PORT_BATCH = 8
-# the same input and widths at LSTM horizon 8, the CLI's above 256 KiB of
-# input (tests/torch_parity.py --write-h8-fixture writes it,
-# tests/test_torch_port_h8.py holds both packages to it)
-PORT_H8_ARCHIVE = os.path.join(ROOT, "testdata", "portable_h8.tcmx")
-PORT_H8_SMALL = dict(PORT_SMALL, lstm_horizon=8)
-# the routed fixture (tests/torch_parity.py --write-routed-fixture): x86
-# code, a 24-bit BMP, a WAV and a baseline JPEG; the JAX package's PORT=1
-# archive of it at ROUTED_SMALL's widths in one group of ROUTED_BATCH
-# (tests/test_torch_routed_fixture.py regenerates the archive)
-ROUTED_FIXTURE = os.path.join(ROOT, "testdata", "routed.raw")
-ROUTED_ARCHIVE = os.path.join(ROOT, "testdata", "routed.tcmx")
-ROUTED_SMALL = dict(PORT_SMALL, block_size=128, seg_size=128)
-ROUTED_BATCH = 64
-# the same under CMIX_JPEGC=0, the JPEG kept as a pass-through segment
-# (tests/torch_parity.py --write-routed-nojpegc-fixture writes it,
-# tests/test_torch_jpegc_runner.py holds both packages to it)
-ROUTED_NOJPEGC_ARCHIVE = os.path.join(ROOT, "testdata", "routed_nojpegc.tcmx")
-# the routed fixture at CLI widths: the fast profile in 256-byte blocks;
-# the portable profile in 128-byte blocks, held to the sha256 of the JAX
-# package's PORT=1 archive on the CPU (tests/test_torch_routed_cli_width.py
-# recomputes it)
-ROUTED_BLOCK, ROUTED_PORT_BLOCK = 256, 128
-ROUTED_PORT_SHA256 = ("6ff52d6050f4c66dbb7380b909123bed"
-                      "86d991e6ce8161cda1b14df254833d36")
-# the portable profile at CLI widths: 4 KiB in 128-byte blocks; the sha256
-# of the JAX package's PORT=1 archive of it on the CPU
-# (tests/test_torch_port_cli_width.py recomputes it)
-PORT_KIB, PORT_BLOCK = 4, 128
-PORT_CLI_SHA256 = ("dba946f7b1ca74cb7a76ece85a61d81f"
-                   "b478bbf5550ec23a16a2dc5a4a22e35f")
-# the dictionary path: english.dic's first 128 lines (600 B; replayed with
-# LF -> space, padded to 640 steps at 128-byte blocks) on 2 KiB of text
-# (1744 B of WRT payload, 14 blocks in one group) at CLI widths; the sha256
-# of the JAX package's PORT=1 archive of it on the CPU
-# (tests/test_torch_dict_cli_width.py recomputes it)
-DICT_FILE = os.path.join(ROOT, "testdata", "mini.dic")
-DICT_KIB, DICT_BLOCK = 2, 128
-DICT_PORT_SHA256 = ("aff0d39ba4c1426e61ea2715cc91176c"
-                    "83863427c7ebcc77749542b08d2d0027")
-# the gated path: the routed fixture and ~1 KiB of text with table rows
-# (tests/torch_parity.py --write-gated-fixture) under every off-by-default
-# mechanism the port runs (utils/profiling.GATED), JVAL=2 routed with JPEGX
-# by JVAL_ROUTE; the fast profile at CLI widths in GATED_BLOCK-byte blocks
-# and at small widths against the CPU; the JAX package's PORT=1 archive of
-# it (the mechanisms the portable profile allows, GATED_PORT) at small
-# widths in one group (tests/test_torch_gated_fixture.py regenerates it);
-# the portable profile at CLI widths in GATED_PORT_BLOCK-byte blocks, held
-# to the sha256 of the JAX package's CPU archive
-# (tests/test_torch_gated_cli_width.py recomputes it)
-GATED_FIXTURE = os.path.join(ROOT, "testdata", "gated.raw")
-GATED_ARCHIVE = os.path.join(ROOT, "testdata", "gated.tcmx")
-GATED_SMALL = ROUTED_SMALL
-GATED_BATCH = 64
-GATED_BLOCK, GATED_PORT_BLOCK = 256, 128
-JVAL_ROUTE = "2"
-GATED_PORT_SHA256 = ("5ec5a09a06d08629bbbf10c291b41ccc"
-                     "c85d1a58a403ae00b4fabbe7bc936a43")
-# the gates path (the remaining gate values, utils/profiling.LEAN and
-# KNOBS) on the gated fixture: the fast profile at CLI widths in
-# GATES_BLOCK-byte blocks (one group) and at the gated path's small widths
-# against the CPU (sizes within GATES_SIZE_TOL); the JAX package's PORT=1
-# archive of it under KNOBS at the gated path's small widths
-# (tests/test_torch_gates_fixture.py regenerates it); the portable profile
-# at CLI widths, held to the sha256 of the JAX package's CPU archive of each
-# set (tests/test_torch_gates_cli_width*.py recompute them)
-GATES_BLOCK = 128
+# the fast profile's blocks at CLI widths on the routed and gated fixtures
+ROUTED_BLOCK = GATED_BLOCK = 256
+# the gates path at small widths against the CPU: sizes within this
 GATES_SIZE_TOL = 0.001
-KNOBS_ARCHIVE = os.path.join(ROOT, "testdata", "knobs.tcmx")
-GATES_PORT_SHA256 = {
-    "lean": ("b1dd53a793ac36ad807b1e8def8182c8"
-             "186d5253a7566815dbc3cd027856c7e6"),
-    "knobs": ("1bace65c275ff7ddf985903897505217"
-              "b6b2d94a1f36dd7b3d2e4918a1dcfa0a")}
 # the resume leg: a text prefix at the main path's small widths in groups
 # of RESUME_BATCH blocks
 RESUME_KIB, RESUME_BATCH = 2, 4
@@ -946,40 +863,69 @@ def main_path_h8(device):
     return windows
 
 
-def portable_cross_device(device, fixture=PORT_FIXTURE, archive=PORT_ARCHIVE,
-                          small=PORT_SMALL, batch=PORT_BATCH, what="text",
-                          gates=None, cpu=True):
-    """The JAX package's PORT=1 archive (of ``gates``, PORT=1 alone by
-    default) against the port on the card and (``cpu``) on the CPU: decodes
-    exactly, re-encodes byte-identically."""
-    from cmix_tpu_torch import runner
+def golden(name):
+    """Golden case ``name`` (GOLDEN_CASES) as the card codes it -> (input
+    bytes, EngineConfig, ``runner.compress``'s keyword arguments, the
+    environment it runs in, the JAX package's archive)."""
     from cmix_tpu_torch.engine import EngineConfig
-    with open(fixture, "rb") as f:
-        data = f.read()
-    with open(archive, "rb") as f:
-        ref = f.read()
-    cfg = EngineConfig(**small)
-    kw = dict(max_batch=batch, gates=gates or {"PORT": 1})
-    print(f"portable fixture {os.path.basename(archive)}: {len(data)} B of "
-          f"{what}, the JAX package's PORT=1 archive {len(ref)} B "
-          f"({cfg.block_size} B blocks, one group, small widths, gate "
-          f"record {_gate_record(ref).decode()!r})")
+    e, data, dic, arc = golden_cases.read_case(name)
+    kw = dict(gates=e["gates"], dictionary=dic)
+    if e["max_batch"] is not None:
+        kw["max_batch"] = e["max_batch"]
+    return data, EngineConfig(**e["config"]), kw, e["env"], arc
+
+
+def _is_golden(label, arc, ref):
+    digest = golden_cases.sha256(arc)
+    if arc != ref:
+        raise AssertionError(f"{label}: the card's archive ({len(arc)} B, "
+                             f"sha256 {digest}) is not the JAX package's "
+                             f"({len(ref)} B, {golden_cases.sha256(ref)})")
+    print(f"{label}: the card's archive is byte-identical to the JAX "
+          f"package's CPU archive ({len(arc)} B, sha256 {digest[:16]}...)")
+
+
+def golden_path(label, name, device, reencode=True):
+    """``_round_trip`` of golden case ``name``'s call on the card, in its
+    environment; the archive must be the JAX package's -> (launch windows,
+    (data, cfg, gates, archive))."""
+    data, cfg, kw, env, ref = golden(name)
+    print(f"{label}: golden {name}, {len(data)} B in {cfg.block_size} B "
+          f"blocks, gates {kw['gates']}, environment {env}")
+    with mock.patch.dict(os.environ, env):
+        windows, arc = _round_trip(label, data, cfg, device, reencode, **kw)
+    _is_golden(label, arc, ref)
+    return windows, (data, cfg, kw["gates"], arc)
+
+
+def portable_cross_device(device, name, what="text", cpu=True):
+    """The JAX package's PORT=1 archive of golden case ``name`` against the
+    port on the card and (``cpu``) on the CPU, in the case's environment:
+    decodes exactly, re-encodes byte-identically."""
+    from cmix_tpu_torch import runner
+    data, cfg, kw, env, ref = golden(name)
+    print(f"portable fixture {name}: {len(data)} B of {what}, the JAX "
+          f"package's PORT=1 archive {len(ref)} B ({cfg.block_size} B "
+          f"blocks, one group, small widths, gate record "
+          f"{_gate_record(ref).decode()!r})")
     legs, windows = [], []
-    for what, fn, dev in (
-            ("card decodes the JAX archive", lambda: runner.decompress(
-                ref, device=device), device),
-            ("card encodes", lambda: runner.compress(
-                data, cfg, device=device, **kw), device),
-            ("CPU encodes", lambda: runner.compress(
-                data, cfg, device="cpu", **kw), "cpu"))[:3 if cpu else 2]:
-        with Launches() as w:
-            t0 = time.time()
-            out = fn()
-            legs.append((what, out, time.time() - t0))
-        if dev != "cpu":
-            windows.append(w)
-            if w.counts["dmc_fused"] <= 0:
-                raise AssertionError(f"portable: {what}: no dmc_fused launch")
+    with mock.patch.dict(os.environ, env):
+        for what, fn, dev in (
+                ("card decodes the JAX archive", lambda: runner.decompress(
+                    ref, device=device), device),
+                ("card encodes", lambda: runner.compress(
+                    data, cfg, device=device, **kw), device),
+                ("CPU encodes", lambda: runner.compress(
+                    data, cfg, device="cpu", **kw), "cpu"))[:3 if cpu else 2]:
+            with Launches() as w:
+                t0 = time.time()
+                out = fn()
+                legs.append((what, out, time.time() - t0))
+            if dev != "cpu":
+                windows.append(w)
+                if w.counts["dmc_fused"] <= 0:
+                    raise AssertionError(f"portable: {what}: no dmc_fused "
+                                         "launch")
     if cpu:
         t0 = time.time()
         back_cpu = runner.decompress(legs[1][1], device="cpu")
@@ -993,33 +939,14 @@ def portable_cross_device(device, fixture=PORT_FIXTURE, archive=PORT_ARCHIVE,
     return windows
 
 
-def portable_cli(device):
-    """The portable profile through the runner at CLI widths."""
-    data = _text(PORT_KIB)
-    print(f"portable path: {len(data)} bytes of text100k.raw, block size "
-          f"cut 65536 -> {PORT_BLOCK} ({len(data) // PORT_BLOCK} blocks in "
-          "one group), CLI widths, PORT=1")
-    windows, arc = _round_trip("portable path", data, _cli_cfg(PORT_BLOCK),
-                               device, gates={"PORT": 1})
-    digest = hashlib.sha256(arc).hexdigest()
-    if digest != PORT_CLI_SHA256:
-        raise AssertionError(f"portable path: archive sha256 {digest} is not"
-                             f" the JAX package's {PORT_CLI_SHA256}")
-    print("portable path: the card's archive is byte-identical to the JAX "
-          f"package's CPU archive (sha256 {digest[:16]}...)")
-    return windows, (data, _cli_cfg(PORT_BLOCK), {"PORT": 1}, arc)
-
-
 def routed_path(device):
     """The content-routed path on the routed fixture: the fast profile at
-    CLI widths and at small widths against the CPU, the JAX package's
-    PORT=1 archive across devices, and the portable profile at CLI
-    widths -> the launch windows."""
+    CLI widths and at the golden ``routed``'s small widths against the CPU,
+    that golden across devices, and the portable profile at CLI widths
+    (the golden ``routed_cli``) -> the launch windows."""
     from cmix_tpu_torch import runner
-    from cmix_tpu_torch.engine import EngineConfig
     from cmix_tpu_torch.preprocess import wrt
-    with open(ROUTED_FIXTURE, "rb") as f:
-        data = f.read()
+    data, small, kw, _, _ = golden("routed")
     t0 = time.time()
     payload, meta = wrt.transform(data)
     t_tr = time.time() - t0
@@ -1045,13 +972,12 @@ def routed_path(device):
           "written")
 
     # the same model on the CPU and on the card at small widths
-    small = EngineConfig(**ROUTED_SMALL)
     with Launches() as w:
-        a_gpu = runner.compress(data, small, max_batch=ROUTED_BATCH,
+        a_gpu = runner.compress(data, small, max_batch=kw["max_batch"],
                                 device=device)
         ok = runner.decompress(a_gpu, device=device) == data
     windows.append(w)
-    a_cpu = runner.compress(data, small, max_batch=ROUTED_BATCH,
+    a_cpu = runner.compress(data, small, max_batch=kw["max_batch"],
                             device="cpu")
     gap = (len(a_gpu) - len(a_cpu)) / len(a_cpu)
     if not ok or abs(gap) > 0.01:
@@ -1062,32 +988,20 @@ def routed_path(device):
           f"{len(a_gpu)} B, cpu {len(a_cpu)} B ({gap:+.4%}), gpu round trip "
           "exact")
 
-    windows += portable_cross_device(device, ROUTED_FIXTURE, ROUTED_ARCHIVE,
-                                     ROUTED_SMALL, ROUTED_BATCH,
-                                     "routed content")
-    print(f"routed portable path: CLI widths, PORT=1, block size cut 65536 "
-          f"-> {ROUTED_PORT_BLOCK}")
-    w2, arc = _round_trip("routed portable path", data,
-                          _cli_cfg(ROUTED_PORT_BLOCK), device, reencode=False,
-                          gates={"PORT": 1})
-    digest = hashlib.sha256(arc).hexdigest()
-    if digest != ROUTED_PORT_SHA256:
-        raise AssertionError(f"routed portable path: archive sha256 {digest}"
-                             f" is not the JAX package's {ROUTED_PORT_SHA256}")
-    print("routed portable path: the card's archive is byte-identical to the "
-          f"JAX package's CPU archive (sha256 {digest[:16]}...)")
+    windows += portable_cross_device(device, "routed", "routed content")
+    w2, _ = golden_path("routed portable path", "routed_cli", device,
+                        reencode=False)
     return windows + w2
 
 
 def routed_nojpegc_path(device):
     """The routed fixture under CMIX_JPEGC=0 (its JPEG a pass-through
-    segment, no JPEGX): the JAX package's PORT=1 archive decoded and
+    segment, no JPEGX): the golden ``routed_nojpegc`` decoded and
     re-encoded byte-identically on the card and on the CPU, and the fast
     profile at CLI widths -> the launch windows."""
     from cmix_tpu_torch.preprocess import wrt
-    with open(ROUTED_FIXTURE, "rb") as f:
-        data = f.read()
-    with EnvVar("CMIX_JPEGC", "0"):
+    data, _, _, env, _ = golden("routed_nojpegc")
+    with mock.patch.dict(os.environ, env):
         payload, meta = wrt.transform(data)
         if (meta[-1][0] != wrt.SEG_JPEG
                 or wrt.SEG_JPEGC in {e[0] for e in meta}
@@ -1097,9 +1011,8 @@ def routed_nojpegc_path(device):
         print(f"routed path, CMIX_JPEGC=0: {len(data)} B -> {len(payload)} "
               f"B payload, segments {meta}")
         t0 = time.time()
-        windows = portable_cross_device(
-            device, ROUTED_FIXTURE, ROUTED_NOJPEGC_ARCHIVE, ROUTED_SMALL,
-            ROUTED_BATCH, "routed content, CMIX_JPEGC=0")
+        windows = portable_cross_device(device, "routed_nojpegc",
+                                        "routed content, CMIX_JPEGC=0")
         print(f"routed path, CMIX_JPEGC=0: the JAX archive across devices "
               f"{time.time() - t0:.1f} s; fast profile, CLI widths, block "
               f"size cut 65536 -> {ROUTED_BLOCK} "
@@ -1117,48 +1030,28 @@ def routed_nojpegc_path(device):
     return windows + w
 
 
-class EnvVar:
-    """``os.environ[name] = value`` inside the window (JVAL_ROUTE and
-    CMIX_JPEGC: both packages' ``compress`` read them)."""
-
-    def __init__(self, name, value):
-        self.name, self.value = name, value
-
-    def __enter__(self):
-        self.old = os.environ.get(self.name)
-        os.environ[self.name] = self.value
-
-    def __exit__(self, *exc):
-        if self.old is None:
-            del os.environ[self.name]
-        else:
-            os.environ[self.name] = self.old
-
-
 def gated_path(device):
     """The off-by-default mechanisms on the gated fixture, JVAL=2 routed by
-    JVAL_ROUTE: the fast profile at CLI widths and at small widths against
-    the CPU, the JAX package's PORT=1 archive decoded and re-encoded on the
-    card, the portable profile at CLI widths held to the JAX package's
-    sha256 -> (launch windows, the step profiles)."""
+    JVAL_ROUTE: the fast profile at CLI widths and at the golden
+    ``gated``'s small widths against the CPU, that golden decoded and
+    re-encoded on the card, the portable profile at CLI widths (the golden
+    ``gated_cli``) -> the launch windows."""
     from cmix_tpu_torch import runner
-    from cmix_tpu_torch.engine import EngineConfig, make_gates
+    from cmix_tpu_torch.engine import make_gates
     from cmix_tpu_torch.preprocess import wrt
-    from cmix_tpu_torch.utils.profiling import GATED, GATED_PORT
-    with open(GATED_FIXTURE, "rb") as f:
-        data = f.read()
+    from cmix_tpu_torch.utils.profiling import GATED
+    data, small, kw, env, _ = golden("gated")
     payload, meta = wrt.transform(data)
-    text = len(data) - os.path.getsize(ROUTED_FIXTURE)
-    print(f"gated path: {len(data)} B (the routed fixture and {text} B of "
+    print(f"gated path: {len(data)} B (the routed fixture and ~1 KiB of "
           f"text with table rows) -> {len(payload)} B payload; fast "
           f"profile, CLI widths, block size cut 65536 -> {GATED_BLOCK} "
           f"({-(-len(payload) // GATED_BLOCK)} blocks in one group), gates "
-          f"{GATED}, JVAL_ROUTE={JVAL_ROUTE}")
-    with EnvVar("JVAL_ROUTE", JVAL_ROUTE):
+          f"{GATED}, environment {env}")
+    with mock.patch.dict(os.environ, env):
         windows, arc = _round_trip("gated path", data, _cli_cfg(GATED_BLOCK),
                                    device, gates=GATED)
         want = make_gates(dict(GATED, X86X=2, LMS=2, GRID2=1, JPEGX=1,
-                               JVAL=int(JVAL_ROUTE))).blob()
+                               JVAL=int(env["JVAL_ROUTE"]))).blob()
         gates = _gate_record(arc)
         if gates != want:
             raise AssertionError(f"gated path: gate record {gates!r}, not "
@@ -1166,14 +1059,13 @@ def gated_path(device):
         print(f"gated path: gate record {gates.decode()!r}")
 
         # the same model on the CPU and on the card at small widths
-        small = EngineConfig(**GATED_SMALL)
-        kw = dict(max_batch=GATED_BATCH, gates=GATED)
+        skw = dict(max_batch=kw["max_batch"], gates=GATED)
         with Launches() as w:
-            a_gpu = runner.compress(data, small, device=device, **kw)
+            a_gpu = runner.compress(data, small, device=device, **skw)
             ok = runner.decompress(a_gpu, device=device) == data
         windows.append(w)
         t0 = time.time()
-        a_cpu = runner.compress(data, small, device="cpu", **kw)
+        a_cpu = runner.compress(data, small, device="cpu", **skw)
         t_cpu = time.time() - t0
         gap = (len(a_gpu) - len(a_cpu)) / len(a_cpu)
         if not ok or abs(gap) > 0.01:
@@ -1184,20 +1076,10 @@ def gated_path(device):
               f" {len(a_gpu)} B, cpu {len(a_cpu)} B ({gap:+.4%}; cpu encode "
               f"{t_cpu:.1f} s), gpu round trip exact")
 
-        windows += portable_cross_device(
-            device, GATED_FIXTURE, GATED_ARCHIVE, GATED_SMALL, GATED_BATCH,
-            "gated content", gates=GATED_PORT, cpu=False)
-        print(f"gated portable path: CLI widths, {GATED_PORT}, block size cut"
-              f" 65536 -> {GATED_PORT_BLOCK}")
-        w2, arc = _round_trip("gated portable path", data,
-                              _cli_cfg(GATED_PORT_BLOCK), device,
-                              reencode=False, gates=GATED_PORT)
-    digest = hashlib.sha256(arc).hexdigest()
-    if digest != GATED_PORT_SHA256:
-        raise AssertionError(f"gated portable path: archive sha256 {digest} "
-                             f"is not the JAX package's {GATED_PORT_SHA256}")
-    print("gated portable path: the card's archive is byte-identical to the "
-          f"JAX package's CPU archive (sha256 {digest[:16]}...)")
+    windows += portable_cross_device(device, "gated", "gated content",
+                                     cpu=False)
+    w2, _ = golden_path("gated portable path", "gated_cli", device,
+                        reencode=False)
     return windows + w2
 
 
@@ -1205,25 +1087,23 @@ def gates_path(device):
     """The remaining gate values (``utils/profiling.LEAN`` and ``KNOBS``)
     on the gated fixture: per set the fast profile at CLI widths (exact
     round trip, identical re-encode, the gates in the record) and at small
-    widths against the CPU, the portable profile at CLI widths held to the
-    JAX package's sha256; for KNOBS the JAX package's PORT=1 archive
-    ``testdata/knobs.tcmx`` decoded and re-encoded on the card -> ({set:
-    launch windows}, {label: (data, cfg, gates, fast archive)})."""
+    widths against the CPU, the portable profile at CLI widths (the golden
+    ``lean_cli`` or ``knobs_cli``); for KNOBS the golden ``knobs`` decoded
+    and re-encoded on the card -> ({set: launch windows}, {label: (data,
+    cfg, gates, fast archive)})."""
     from cmix_tpu_torch import runner
-    from cmix_tpu_torch.engine import EngineConfig, make_gates
+    from cmix_tpu_torch.engine import make_gates
     from cmix_tpu_torch.utils import profiling
-    with open(GATED_FIXTURE, "rb") as f:
-        data = f.read()
+    _, small, kw, _, _ = golden("knobs")
     windows, archives = {}, {}
-    small = EngineConfig(**GATED_SMALL)
     for name in ("lean", "knobs"):
         env = getattr(profiling, name.upper())
+        data, cfg, _, _, _ = golden(f"{name}_cli")
         g = make_gates(env)
         label = f"gates path, {name}"
         print(f"{label}: {len(data)} B of the gated fixture, fast profile, "
-              f"CLI widths, block size cut 65536 -> {GATES_BLOCK} (one "
+              f"CLI widths, block size cut 65536 -> {cfg.block_size} (one "
               f"group), DMC_LEVELS={g.dmc_levels}, gates {env}")
-        cfg = _cli_cfg(GATES_BLOCK)
         w, arc = _round_trip(label, data, cfg, device, gates=env)
         want = make_gates(dict(env, X86X=2, LMS=2, GRID2=1, JPEGX=1)).blob()
         if _gate_record(arc) != want:
@@ -1231,13 +1111,13 @@ def gates_path(device):
                                  f"{_gate_record(arc)!r}, not {want!r}")
         archives[f"{label}, fast profile"] = (data, cfg, env, arc)
 
-        kw = dict(max_batch=GATED_BATCH, gates=env)
+        skw = dict(max_batch=kw["max_batch"], gates=env)
         with Launches() as ws:
-            a_gpu = runner.compress(data, small, device=device, **kw)
+            a_gpu = runner.compress(data, small, device=device, **skw)
             ok = runner.decompress(a_gpu, device=device) == data
         w.append(ws)
         t0 = time.time()
-        a_cpu = runner.compress(data, small, device="cpu", **kw)
+        a_cpu = runner.compress(data, small, device="cpu", **skw)
         t_cpu = time.time() - t0
         gap = (len(a_gpu) - len(a_cpu)) / len(a_cpu)
         if not ok or abs(gap) > GATES_SIZE_TOL:
@@ -1249,21 +1129,10 @@ def gates_path(device):
               f"encode {t_cpu:.1f} s), gpu round trip exact")
 
         if name == "knobs":
-            w += portable_cross_device(
-                device, GATED_FIXTURE, KNOBS_ARCHIVE, GATED_SMALL,
-                GATED_BATCH, "gated content", gates=dict(env, PORT=1),
-                cpu=False)
-        w2, parc = _round_trip(f"{label}, portable profile", data, cfg,
-                               device, reencode=False,
-                               gates=dict(env, PORT=1))
-        digest = hashlib.sha256(parc).hexdigest()
-        if digest != GATES_PORT_SHA256[name]:
-            raise AssertionError(f"{label}: portable archive sha256 {digest} "
-                                 "is not the JAX package's "
-                                 f"{GATES_PORT_SHA256[name]}")
-        print(f"{label}, portable profile: the card's archive is "
-              f"byte-identical to the JAX package's CPU archive (sha256 "
-              f"{digest[:16]}...)")
+            w += portable_cross_device(device, "knobs", "gated content",
+                                       cpu=False)
+        w2, _ = golden_path(f"{label}, portable profile", f"{name}_cli",
+                            device, reencode=False)
         windows[name] = w + w2
     return windows, archives
 
@@ -1477,28 +1346,6 @@ def sharded_phase(device):
     return launches
 
 
-def gated_profiles():
-    """ms per graphed byte step at B=256 and CLI widths, device busy, the
-    median replay and its parts, and kernels per step, with and without
-    the mechanisms, in both profiles (``utils/profiling.py``)."""
-    from cmix_tpu_torch.utils import profiling
-    rows = {}
-    for gates in ("default", "gated", "portable", "gated-portable", "lean",
-                  "knobs"):
-        r = profiling.profile_steps(256, PROFILE_STEPS, gates, True, "cli")
-        rows[gates] = r
-        print(f"gated: profile, CLI widths, B=256, graph, gates {gates}: wall"
-              f" {r['wall_ms_per_step']:.3f} ms/step "
-              f"({r['traced_wall_ms_per_step']:.3f} traced), device busy "
-              f"{r['device_busy_ms_per_step']:.3f} ms/step, replay "
-              f"{r['replay_ms']} ms (median), parts {r['part_ms']}, "
-              f"device kernels/step "
-              f"{r['device_kernels_per_step']:.2f}; dmc_fused "
-              f"{r['dmc_kernels']['dmc_fused_kernel']}; top kernels "
-              f"{r['top_device_kernels'][:4]}")
-    return rows
-
-
 class Replays:
     """Each dictionary replay (``engine.make_pretrainer``) in a window:
     its seconds (synchronized), bytes and dmc_fused launches."""
@@ -1530,12 +1377,11 @@ class Replays:
 
 
 def _dict_leg(label, data, cfg, device, expect_replay, **kw):
-    """``_round_trip`` with the dictionary, its replays recorded: one replay
-    of at least 640 steps in the encode when ``expect_replay``, none else
-    (the cache).  -> (windows, archive, replay launches)."""
+    """``_round_trip`` with a dictionary (in ``kw``), its replays recorded:
+    one replay of at least 640 steps in the encode when ``expect_replay``,
+    none else (the cache).  -> (windows, archive, replay launches)."""
     with Replays() as rep:
-        windows, arc = _round_trip(label, data, cfg, device,
-                                   dictionary=DICT_FILE, **kw)
+        windows, arc = _round_trip(label, data, cfg, device, **kw)
     runs = rep.runs
     if len(runs) != int(expect_replay) or (runs and runs[0]["launches"] < 640):
         raise AssertionError(f"{label}: replays {runs}, expected "
@@ -1558,24 +1404,25 @@ def _dict_leg(label, data, cfg, device, expect_replay, **kw):
 
 
 def dict_path(device):
-    """Dictionary mode at CLI widths, the fast profile then the portable
-    one, each in a fresh pretraining cache -> (launch windows, launches
-    of the replays)."""
+    """Dictionary mode at CLI widths on the golden ``dict_cli``'s call,
+    the fast profile then the portable one (the golden), each in a fresh
+    pretraining cache -> (launch windows, launches of the replays)."""
     import tempfile
     from cmix_tpu_torch.preprocess import wrt
     from cmix_tpu_torch.utils import checkpoint
-    data = _text(DICT_KIB)
+    data, cfg, kw, _, ref = golden("dict_cli")
+    dic = kw["dictionary"]
     t0 = time.time()
-    payload, meta = wrt.transform(data, wrt.Dictionary(DICT_FILE))
+    payload, meta = wrt.transform(data, wrt.Dictionary(dic))
     t_wrt = time.time() - t0
     if meta[0][0] != wrt.SEG_TEXT or len(payload) >= len(data):
         raise AssertionError(f"dictionary path: WRT did not code the text "
                              f"({meta})")
     print(f"dictionary path: {len(data)} B of text100k.raw -> {len(payload)} "
-          f"B of WRT payload with {os.path.basename(DICT_FILE)} in "
+          f"B of WRT payload with {os.path.basename(dic)} in "
           f"{t_wrt * 1e3:.1f} ms (host); CLI widths, block size cut 65536 -> "
-          f"{DICT_BLOCK} ({-(-len(payload) // DICT_BLOCK)} blocks in one "
-          "group)")
+          f"{cfg.block_size} ({-(-len(payload) // cfg.block_size)} blocks in "
+          "one group)")
     # the WRT twin (a Python loop) on all of text100k.raw with the shipped
     # list, what --dict auto codes
     from cmix_tpu_torch.runner import AUTO_DICT
@@ -1588,7 +1435,6 @@ def dict_path(device):
     print(f"dictionary path: WRT of text100k.raw with english.dic, {len(full)}"
           f" B -> {len(enc)} B: encode {(t1 - t0) * 1e3:.1f} ms, decode "
           f"{(time.time() - t1) * 1e3:.1f} ms (host)")
-    cfg = _cli_cfg(DICT_BLOCK)
     build = os.path.join(ROOT, "build")
     os.makedirs(build, exist_ok=True)
     old_dir = checkpoint.CACHE_DIR
@@ -1596,77 +1442,16 @@ def dict_path(device):
         with tempfile.TemporaryDirectory(dir=build) as cache:
             checkpoint.CACHE_DIR = os.path.join(cache, "fast")
             windows, _, replayed = _dict_leg(
-                "dictionary path, fast profile", data, cfg, device, True)
+                "dictionary path, fast profile", data, cfg, device, True,
+                dictionary=dic)
             checkpoint.CACHE_DIR = os.path.join(cache, "portable")
             w2, arc, r2 = _dict_leg(
                 "dictionary path, portable profile", data, cfg, device, True,
-                reencode=False, gates={"PORT": 1})
+                reencode=False, **kw)
     finally:
         checkpoint.CACHE_DIR = old_dir
-    digest = hashlib.sha256(arc).hexdigest()
-    if digest != DICT_PORT_SHA256:
-        raise AssertionError(f"dictionary path: portable archive sha256 "
-                             f"{digest} is not the JAX package's "
-                             f"{DICT_PORT_SHA256}")
-    print("dictionary path: the card's portable archive is byte-identical to "
-          f"the JAX package's CPU archive (sha256 {digest[:16]}...)")
+    _is_golden("dictionary path, portable profile", arc, ref)
     return windows + w2, replayed + r2
-
-
-def step_ms(device, label, env, cfg, B, steps, graph=True):
-    """Host-clock ms per byte step (synchronized) over one segment of
-    ``steps`` steps on bench4m.raw lanes, after one segment of warm-up
-    (the graph's capture included), as the transcoder runs them:
-    ``engine.make_segment_fn``'s graph, or the eager step."""
-    import dataclasses
-    import numpy as np
-    import torch
-    from cmix_tpu_torch import engine as E
-    g = E.make_gates(env)
-    cfg = dataclasses.replace(cfg, seg_size=steps)
-    raw = np.fromfile(os.path.join(ROOT, "testdata", "bench4m.raw"),
-                      dtype=np.uint8).reshape(256, -1)[:B]
-    inp = torch.as_tensor(raw[:, :2 * steps].T.copy(), device=device)
-    seg = E.make_segment_fn(cfg, g, device, graph)
-    with torch.no_grad():
-        seg.start(E.init_shared(cfg, g, device),
-                  E.init_perblock(cfg, g, B, device), E.init_coder(B, device),
-                  torch.zeros((B, cfg.comp_size), dtype=torch.uint8,
-                              device=device),
-                  torch.zeros(B, dtype=torch.int64, device=device))
-        seg.run(inp[:steps])
-        torch.cuda.synchronize()
-        t0 = time.time()
-        seg.run(inp[steps:])
-        torch.cuda.synchronize()
-    ms = (time.time() - t0) / steps * 1e3
-    print(f"step: {label}, B={B}, {'graph' if graph else 'eager'}: "
-          f"{ms:.3f} ms per byte step over {steps} steps after {steps} "
-          f"warm-up -> {B / ms * 1e3 / 1e6:.6f} MB/s one direction")
-    return ms
-
-
-def step_times(device):
-    from cmix_tpu_torch import engine as E
-    bench = E.EngineConfig(block_size=16384, tbits=18, mbits=18, ibits=16,
-                           lstm_hidden=256, seg_size=2048, dmc_nodes=16384,
-                           lstm_horizon=4)
-    for B in (256, 1):
-        for graph in (True, False):
-            step_ms(device, "bench profile (bench widths and gates)",
-                    E.BENCH_GATES, bench, B, BENCH_STEPS, graph)
-    cli = _cli_cfg(16384)
-    for label, env in (("fast profile, default gates", {}),
-                       ("portable profile, PORT=1", {"PORT": 1})):
-        for B in (16, 256):
-            for graph in (True, False):
-                step_ms(device, f"{label}, CLI widths", env, cli, B,
-                        STEP_STEPS, graph)
-    # the lanes of the CLI's whole run on a 4 MiB file (64 blocks of 64 KiB
-    # in one group), at the horizon it picks there (8) and at 4
-    for horizon in (4, 8):
-        step_ms(device, f"fast profile, default gates, CLI widths, horizon "
-                f"{horizon}", {}, _cli_cfg(16384, horizon), 64, STEP_STEPS)
 
 
 class Eager:
@@ -1701,7 +1486,7 @@ def graph_vs_eager_archives(device, archives):
                                  f"({len(eager)} B)")
         print(f"graph: {label}: the graph's archive is byte-identical to the "
               f"eager step's ({len(arc)} B, sha256 "
-              f"{hashlib.sha256(arc).hexdigest()[:16]}...; eager encode "
+              f"{golden_cases.sha256(arc)[:16]}...; eager encode "
               f"{time.time() - t0:.2f} s, dmc_fused launches "
               f"{w.counts['dmc_fused']})")
     return windows
@@ -1716,10 +1501,10 @@ def graph_vs_eager_replay(device):
     import torch
     from cmix_tpu_torch import engine as E
     from cmix_tpu_torch.utils.checkpoint import _leaves
-    with open(DICT_FILE, "rb") as f:
+    _, cfg, kw, _, _ = golden("dict_cli")
+    with open(kw["dictionary"], "rb") as f:
         data = np.frombuffer(f.read()[:DICT_EAGER_BYTES].replace(
             b"\n", b" "), np.uint8)
-    cfg = _cli_cfg(DICT_BLOCK)
     for label, env in (("fast", {"WRTW": 1}), ("portable", {"PORT": 1,
                                                             "WRTW": 1})):
         g = E.make_gates(env)
@@ -1743,36 +1528,13 @@ def graph_vs_eager_replay(device):
         if worst > 2e-5:
             raise AssertionError(f"graph: {label} replay: float leaves "
                                  f"{worst} from the eager replay's")
-        steps = -(-len(data) // DICT_BLOCK) * DICT_BLOCK
+        steps = -(-len(data) // cfg.block_size) * cfg.block_size
         print(f"graph: {label} dictionary replay ({len(data)} B, {steps} "
               f"steps at B=1): the graph's state equals the eager replay's "
               f"({len(states[0])} leaves, integer leaves exact, float max abs "
               f"diff {worst}); graph {secs[0]:.2f} s "
               f"({secs[0] / steps * 1e3:.3f} ms/step), eager {secs[1]:.2f} s "
               f"({secs[1] / steps * 1e3:.3f} ms/step)")
-
-
-def graph_profiles():
-    """Wall ms, device busy ms and the median replay ms per step, graph
-    and eager, at bench widths and gates, B=256 and B=1
-    (``utils/profiling.py``)."""
-    from cmix_tpu_torch.utils import profiling
-    rows = []
-    for batch in (256, 1):
-        for graph in (True, False):
-            r = profiling.profile_steps(batch, PROFILE_STEPS, "bench", graph)
-            rows.append(r)
-            print(f"graph: profile, bench widths and gates, B={batch}, "
-                  f"{r['step']}: wall {r['wall_ms_per_step']:.3f} ms/step "
-                  f"({r['traced_wall_ms_per_step']:.3f} traced), "
-                  f"device busy {r['device_busy_ms_per_step']:.3f} ms/step, "
-                  f"replay {r['replay_ms']} ms (median, graph only), "
-                  f"host calls/step: "
-                  f"aten {r['aten_calls_per_step']:.2f}, launches "
-                  f"{r['kernel_launches_per_step']:.2f}; device kernels/step "
-                  f"{r['device_kernels_per_step']:.2f}; dmc_fused "
-                  f"{r['dmc_kernels']['dmc_fused_kernel']}")
-    return rows
 
 
 def bench_segment(device):
@@ -1822,7 +1584,6 @@ def bench_segment(device):
 def graph_phase(device, archives):
     windows = graph_vs_eager_archives(device, archives)
     graph_vs_eager_replay(device)
-    graph_profiles()
     return windows + bench_segment(device)
 
 
@@ -1854,10 +1615,12 @@ def main():
     lstm = phase("ilstm kernel", ilstm_kernel, device)
     windows, main_arc = phase("main path", main_path, device)
     windows += phase("main path, horizon 8", main_path_h8, device)
-    windows += phase("portable fixture", portable_cross_device, device)
+    windows += phase("portable fixture", portable_cross_device, device,
+                     "portable")
     windows += phase("portable fixture, horizon 8", portable_cross_device,
-                     device, PORT_FIXTURE, PORT_H8_ARCHIVE, PORT_H8_SMALL)
-    w, port_arc = phase("portable path", portable_cli, device)
+                     device, "portable_h8")
+    w, port_arc = phase("portable path", golden_path, "portable path",
+                        "port_cli", device)
     windows += w
     routed = phase("routed path", routed_path, device)
     windows += routed
@@ -1872,8 +1635,6 @@ def main():
     dicts, replayed = phase("dict path", dict_path, device)
     windows += dicts
     sharded = phase("sharded", sharded_phase, device)
-    phase("step times", step_times, device)
-    phase("gated profiles", gated_profiles)
     windows += phase("graph", graph_phase, device, dict({
         "main path, fast profile": main_arc,
         "portable path, PORT=1": port_arc}, **gates_arcs))

@@ -10,10 +10,10 @@ import struct
 
 import pytest
 
-import chip_smoke
 import torch_parity  # noqa: F401  (one torch thread per worker)
 from cmix_tpu_torch import engine as E
 from cmix_tpu_torch import runner
+from golden_cases import read_case
 from torch_parity import RUNNER_KW
 
 
@@ -42,13 +42,11 @@ def _small(data, **kw):
 
 
 def test_port_from_the_environment_writes_the_jax_archive(clean_env):
-    with open(chip_smoke.PORT_FIXTURE, "rb") as f:
-        data = f.read()
-    with open(chip_smoke.PORT_ARCHIVE, "rb") as f:
-        ref = f.read()
+    e, data, _, ref = read_case("portable")
+    assert e["gates"] == {"PORT": 1}
     clean_env.setenv("PORT", "1")
-    arc = runner.compress(data, E.EngineConfig(**chip_smoke.PORT_SMALL),
-                          max_batch=chip_smoke.PORT_BATCH, device="cpu")
+    arc = runner.compress(data, E.EngineConfig(**e["config"]),
+                          max_batch=e["max_batch"], device="cpu")
     assert _record(arc) == b"PORT=1"
     assert arc == ref
 

@@ -16,6 +16,7 @@ from cmix_tpu_torch import runner
 from cmix_tpu_torch.mixer.ilstm import LAUNCHES, ilstm_shared_byte_update
 from cmix_tpu_torch.models import dmc
 from cmix_tpu_torch.utils.profiling import GATE_SETS
+from golden_cases import read_case
 
 pytestmark = pytest.mark.cuda
 
@@ -399,8 +400,7 @@ def test_meter_times_the_routed_part_on_routed_content(gpu, gates):
     (``test_meter_times_each_replay_and_the_steps_parts``)."""
     from cmix_tpu_torch.utils.profiling import Meter
     cfg = E.EngineConfig(**GRAPH_KW)
-    with open(chip_smoke.ROUTED_FIXTURE, "rb") as f:
-        data = f.read()
+    data = read_case("routed")[1]
     kw = dict(max_batch=64, gates=gates, device=gpu)
     arc = runner.compress(data, cfg, **kw)
     m = Meter()

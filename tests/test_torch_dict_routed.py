@@ -11,7 +11,6 @@ import struct
 
 import pytest
 
-import chip_smoke
 from cmix_tpu_torch import engine as E
 from cmix_tpu_torch import runner
 from cmix_tpu_torch.utils import checkpoint
@@ -41,7 +40,7 @@ def test_routed_content_with_a_dictionary_matches_jax(tmp_path, monkeypatch):
     with open("testdata/exe100k.raw", "rb") as f:
         data = f.read()[36864:36864 + 768]
     dic = tmp_path / "words.dic"
-    with open(chip_smoke.DICT_FILE, "rb") as f:
+    with open("testdata/mini.dic", "rb") as f:
         dic.write_bytes(b"".join(f.readlines()[:20]))
     aj = jax_golden("dict_routed", data, config=TINY, gates={"PORT": 1},
                     dictionary=str(dic))

@@ -8,7 +8,6 @@ the JAX package's."""
 
 import pytest
 
-import chip_smoke
 from cmix_tpu_torch import engine as te
 from cmix_tpu_torch import runner as tr
 from cmix_tpu_torch.utils.profiling import GATED_PORT
@@ -35,9 +34,8 @@ def jax_archive(data):
 
 
 @pytest.fixture
-def jval_route():
-    with chip_smoke.EnvVar("JVAL_ROUTE", "2"):
-        yield
+def jval_route(monkeypatch):
+    monkeypatch.setenv("JVAL_ROUTE", "2")
 
 
 def test_port_archive_is_the_jax_packages_and_decodes_there(jval_route):

@@ -4,13 +4,11 @@ exactly on the CPU (chip_smoke.py decodes it on the card and holds the
 card's encode to it; test_torch_gates_runner_knobs.py holds the port's
 PORT=1 encode under KNOBS to the JAX package's on the CPU)."""
 
-import chip_smoke
 import torch_parity  # noqa: F401  (one torch thread per worker)
 from cmix_tpu_torch import runner
+from golden_cases import read_case
 
 
 def test_port_decodes_the_knobs_fixture():
-    with open(chip_smoke.GATED_FIXTURE, "rb") as f:
-        data = f.read()
-    with open(chip_smoke.KNOBS_ARCHIVE, "rb") as f:
-        assert runner.decompress(f.read(), device="cpu") == data
+    _, data, _, arc = read_case("knobs")
+    assert runner.decompress(arc, device="cpu") == data

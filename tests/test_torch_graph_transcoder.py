@@ -7,32 +7,23 @@ import struct
 
 import pytest
 
-import chip_smoke
 import torch_parity  # noqa: F401  (one torch thread per worker)
 from cmix_tpu_torch import engine as E
 from cmix_tpu_torch import runner
 from cmix_tpu_torch.utils.profiling import Meter
+from golden_cases import read_case
 
 LOG_SEG = 4 + 8                  # magic, then the header's 9th byte
 
 
-@pytest.mark.parametrize("fixture,archive,small,batch", [
-    (chip_smoke.PORT_FIXTURE, chip_smoke.PORT_ARCHIVE, chip_smoke.PORT_SMALL,
-     chip_smoke.PORT_BATCH),
-    (chip_smoke.ROUTED_FIXTURE, chip_smoke.ROUTED_ARCHIVE,
-     chip_smoke.ROUTED_SMALL, chip_smoke.ROUTED_BATCH)],
-    ids=["portable", "routed"])
-def test_pipelined_segments_write_the_committed_archive(fixture, archive,
-                                                        small, batch):
-    with open(fixture, "rb") as f:
-        data = f.read()
-    with open(archive, "rb") as f:
-        ref = f.read()
-    block = small["block_size"]
-    cfg = E.EngineConfig(**dict(small, seg_size=block // 4))
+@pytest.mark.parametrize("case", ["portable", "routed"])
+def test_pipelined_segments_write_the_committed_archive(case):
+    e, data, _, ref = read_case(case)
+    block = e["config"]["block_size"]
+    cfg = E.EngineConfig(**dict(e["config"], seg_size=block // 4))
     meter = Meter()
-    arc = runner.compress(data, cfg, max_batch=batch, gates={"PORT": 1},
-                          device="cpu", meter=meter)
+    arc = runner.compress(data, cfg, max_batch=e["max_batch"],
+                          gates=e["gates"], device="cpu", meter=meter)
     assert ref[LOG_SEG] == block.bit_length() - 1
     assert arc[LOG_SEG] == block.bit_length() - 3
     assert arc[:LOG_SEG] + arc[LOG_SEG + 1:] == \

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no JAX and no cmix_tpu import anywhere in
-cmix_tpu_torch or chip_smoke.py."""
+cmix_tpu_torch, chip_smoke.py or the goldens' reader it imports
+(tests/golden_cases.py), which imports no torch either."""
 
 import os
 import pkgutil
@@ -35,10 +36,11 @@ def test_every_module_imports_with_jax_and_cmix_tpu_blocked():
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'jax.numpy', 'cmix_tpu'):\n"
         "    sys.modules[name] = None\n"
+        "import chip_smoke\n"
+        "assert 'torch' not in sys.modules\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cmix_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
@@ -51,7 +53,8 @@ def test_every_module_imports_with_jax_and_cmix_tpu_blocked():
 
 
 def test_no_jax_or_cmix_tpu_import_in_sources():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tests", "golden_cases.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "cmix_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh"))]

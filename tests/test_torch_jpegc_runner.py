@@ -13,10 +13,9 @@ routed_nojpegc``."""
 
 import struct
 
-import chip_smoke
 from cmix_tpu_torch import engine as E
 from cmix_tpu_torch import runner
-from torch_parity import jax_golden
+from golden_cases import read_case
 
 
 def _record(arc):
@@ -26,19 +25,13 @@ def _record(arc):
 
 
 def test_both_packages_write_and_decode_the_nojpegc_archive(monkeypatch):
-    with open(chip_smoke.ROUTED_FIXTURE, "rb") as f:
-        data = f.read()
-    with open(chip_smoke.ROUTED_NOJPEGC_ARCHIVE, "rb") as f:
-        ref = f.read()
+    e, data, _, ref = read_case("routed_nojpegc")
     assert len(ref) == 3195 and _record(ref) == b"X86X=2;GRID2=1;PORT=1"
-    a_jax = jax_golden("routed_nojpegc", data, config=chip_smoke.ROUTED_SMALL,
-                       gates={"PORT": 1}, env={"CMIX_JPEGC": "0"},
-                       max_batch=chip_smoke.ROUTED_BATCH)
+    assert e["env"] == {"CMIX_JPEGC": "0"}
     monkeypatch.setenv("CMIX_JPEGC", "0")
     a_port = runner.compress(
-        data, E.EngineConfig(**chip_smoke.ROUTED_SMALL),
-        max_batch=chip_smoke.ROUTED_BATCH, gates={"PORT": 1}, device="cpu")
-    assert a_jax == ref
+        data, E.EngineConfig(**e["config"]), max_batch=e["max_batch"],
+        gates=e["gates"], device="cpu")
     assert a_port == ref
     # the segment table says it: the JPEG's 1078 B kept as they are
     seg_meta, _ = runner._read_seg_table(a_port, 4 + runner._HDR_LEN + 2
@@ -46,4 +39,4 @@ def test_both_packages_write_and_decode_the_nojpegc_archive(monkeypatch):
     assert seg_meta[-1] == (6, 1078, 1078)
     # decode follows the archive, whatever the environment says
     monkeypatch.setenv("CMIX_JPEGC", "1")
-    assert runner.decompress(a_jax, device="cpu") == data
+    assert runner.decompress(ref, device="cpu") == data

@@ -5,23 +5,16 @@ the JAX package's encode and decode) and decodes it exactly."""
 
 import struct
 
-import chip_smoke
 from cmix_tpu_torch import engine as E
 from cmix_tpu_torch import runner
-
-
-def _fixture():
-    with open(chip_smoke.ROUTED_FIXTURE, "rb") as f:
-        data = f.read()
-    with open(chip_smoke.ROUTED_ARCHIVE, "rb") as f:
-        return data, f.read()
+from golden_cases import read_case
 
 
 def test_port_writes_the_jax_archive_of_the_routed_fixture():
-    data, ref = _fixture()
-    arc = runner.compress(data, E.EngineConfig(**chip_smoke.ROUTED_SMALL),
-                          max_batch=chip_smoke.ROUTED_BATCH,
-                          gates={"PORT": 1}, device="cpu")
+    e, data, _, ref = read_case("routed")
+    arc = runner.compress(data, E.EngineConfig(**e["config"]),
+                          max_batch=e["max_batch"], gates=e["gates"],
+                          device="cpu")
     off = 4 + runner._HDR_LEN
     glen = struct.unpack("<H", arc[off:off + 2])[0]
     assert arc[off + 2:off + 2 + glen] == b"X86X=2;GRID2=1;JPEGX=1;PORT=1"
@@ -29,5 +22,5 @@ def test_port_writes_the_jax_archive_of_the_routed_fixture():
 
 
 def test_port_decodes_the_jax_archive_of_the_routed_fixture():
-    data, ref = _fixture()
+    _, data, _, ref = read_case("routed")
     assert runner.decompress(ref, device="cpu") == data

@@ -20,6 +20,7 @@ import torch
 from cmix_tpu.models import dmc as jdmc
 from cmix_tpu_torch import convert
 from cmix_tpu_torch.models import dmc
+from golden_cases import GOLDENS, ROOT, archive, goldens, read_parts, sha256
 
 # the parity tests run tiny tensors: threads only add overhead, and the
 # suite runs several worker processes side by side
@@ -433,9 +434,12 @@ def jax_bench_encode(data, env, config):
 # input (slices of committed files), the call (``compress`` at a config
 # with its gates, environment, ``max_batch`` and dictionary; the bench's
 # ``transcoder``; the ``cli`` in a subprocess), and the archive's sha256,
-# length and committed file.  Tests take the archive from ``jax_golden``;
-# tests/test_torch_goldens.py pins the frozen sources and package versions
-# and, under RUN_SLOW=1, re-derives every golden with the JAX package.  The
+# length and committed file; tests/golden_cases.py reads it (without JAX,
+# so chip_smoke.py reads its card's cases there too).  Tests that state
+# their own call take the archive from ``jax_golden``, the others take the
+# whole case from ``golden_cases.read_case``.  tests/test_torch_goldens.py
+# pins the frozen sources and package versions and, under RUN_SLOW=1,
+# re-derives every golden with the JAX package.  The
 # pin does not see the derivation's own code here (``derive_golden``,
 # ``jax_bench_encode``, ``jax_runner_gates``, ``cli_env``, ``run_cli``) or
 # the environment (``XLA_FLAGS``): after a change to either, run
@@ -443,8 +447,6 @@ def jax_bench_encode(data, env, config):
 # without the derived fields, then ``JAX_PLATFORMS=cpu PYTHONPATH=. python
 # tests/torch_parity.py --write-goldens CASE``.
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GOLDENS = os.path.join(ROOT, "testdata", "jax_goldens.json")
 # the JAX package's sources: its tree and the native library it builds
 FROZEN = ("cmix_tpu", os.path.join("native", "preproc.cpp"))
 # the installed packages the goldens were written under (numpy: the JAX
@@ -453,25 +455,6 @@ FROZEN_VERSIONS = ("jax", "jaxlib", "numpy")
 # an entry's call fields, as a test states them (the rest take these)
 CALL = dict(call="compress", config=None, args=None, gates={}, env={},
             max_batch=None, dictionary=None)
-
-
-def sha256(data):
-    return hashlib.sha256(data).hexdigest()
-
-
-def goldens():
-    with open(GOLDENS) as f:
-        return json.load(f)
-
-
-def read_parts(parts):
-    """The bytes of an entry's input: its [path, start, stop] slices of
-    committed files (``stop`` null: to the end), joined."""
-    out = []
-    for path, start, stop in parts:
-        with open(os.path.join(ROOT, path), "rb") as f:
-            out.append(f.read()[start:stop])
-    return b"".join(out)
 
 
 def freeze_digest():
@@ -496,8 +479,8 @@ def freeze_digest():
 def jax_golden(case, data, **call):
     """The JAX package's committed archive for golden ``case``, after
     asserting that ``data`` and the test's ``call`` (the fields of CALL it
-    sets; ``dictionary`` a path) are the entry's and that the file has the
-    entry's sha256 and length.  RUN_SLOW=1 pytest
+    sets; ``dictionary`` a path) are the entry's (``golden_cases.archive``
+    checks the file).  RUN_SLOW=1 pytest
     tests/test_torch_goldens.py re-derives it with the JAX package."""
     e = goldens()["cases"][case]
     assert sha256(data) == e["input_sha256"], case
@@ -509,10 +492,7 @@ def jax_golden(case, data, **call):
     else:
         with open(dic, "rb") as f:
             assert f.read() == read_parts(e["dictionary"]), case
-    with open(os.path.join(ROOT, e["file"]), "rb") as f:
-        arc = f.read()
-    assert (sha256(arc), len(arc)) == (e["sha256"], e["length"]), case
-    return arc
+    return archive(e)
 
 
 def jax_golden_streams(case, data, **call):
